@@ -3,14 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``foundationpose_cpp_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the main path's shapes and
-times both (with the one PyTorch call that computes the same function, where
-there is one), then runs Register and Track end to end at full width (252
-hypotheses, the committed ``weights/*_multi_full.npz``, a 480x640 scene) and
-checks that they went through the kernels and found the object. Prints the
-card, a ``{"kernels": [...]}`` line and, last, the device line. Exits nonzero
-without a result when there is no CUDA card or no port beside it.
+Builds the port's CUDA kernels from ``foundationpose_cpp_tpu_torch/csrc``
+(one nvcc per source, all at once), holds each against its plain PyTorch
+version at the main paths' shapes and times both (with the one PyTorch call
+that computes the same function, where there is one). Then it drives the
+port's paths end to end, each with the launch counts set to 0 just before
+it and read just after:
+
+- Register and Track at full width (252 hypotheses, the committed
+  ``weights/*_multi_full.npz``, six 480x640 frames made by ``render_scene``);
+- the dataset sequence at full width: the same six frames and the textured
+  mesh written in the mustard0 layout, then ``run_dataset`` on them;
+- the dataset sequence with narrow seeded nets (head_dim 16), which routes
+  attention to the head-split kernel.
+
+It checks that each path went through its kernels and found the object.
+Prints the card, a ``{"kernels": [...]}`` line and, last, the device line.
+Exits nonzero without a result when there is no CUDA card or no port beside
+it.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -32,6 +43,10 @@ F32_FLOPS = 67e12  # CUDA-core f32, no tensor cores
 # output by up to 2 ulps, so: 4 ulps at the typical size plus 2 ulps of the
 # value itself (2**-6 relative at the bottom of a binade).
 ATTN_ATOL, ATTN_RTOL = 2.0**-9, 2.0**-6
+# f32 attention (no rounding between the steps): f32 sums of up to 1024
+# terms in another order than cuBLAS's
+ATTN_F32_TOL = 1e-5
+RASTER_AGREE, RASTER_TOL = 0.995, 1e-4  # tests/test_rasterize_pallas.py:27-30
 RENDER_TOL, RENDER_BAD_FRAC = 2e-3, 0.01  # tests/test_torch_render.py
 RENDER_TEST_FLOPS = 20  # mul/add of one pixel's 5 planes (a0, a1, a2, z, w)
 
@@ -63,69 +78,130 @@ def bound(bytes_moved: float, ops: float, peak: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_variant(torch, qkv, heads, scale_mult=1.0, keep_keys=None, round_p=True):
-    """The plain attention with a planted fault: q scaled by scale_mult too,
-    only the keys of keep_keys (a slice), or P left in f32 before P.v."""
+def split_heads(qkv, heads):
+    """(B, T, 3D) packed projection -> q, k, v views of (B, H, T, hd)."""
     b, t, d3 = qkv.shape
-    hd = d3 // 3 // heads
-    q, k, v = qkv.reshape(b, t, 3, heads, hd).permute(2, 0, 3, 1, 4).float()
-    q = (q * (scale_mult / math.sqrt(hd))).to(qkv.dtype).float()
+    return qkv.reshape(b, t, 3, heads, d3 // 3 // heads).permute(2, 0, 3, 1, 4)
+
+
+def attention_variant(torch, q, k, v, scale_mult=1.0, keep_keys=None, round_p=True):
+    """The plain attention on (B, H, T, hd) with a planted fault: q scaled by
+    scale_mult too, only the keys of keep_keys (a slice), or P left in f32
+    before P.v."""
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    q = (q * (scale_mult / math.sqrt(q.shape[-1]))).to(dtype).float()
     if keep_keys is not None:
         k, v = k[:, :, keep_keys], v[:, :, keep_keys]
     p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
     if round_p:
-        p = p.to(qkv.dtype).float()
-    return (p @ v).to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, t, d3 // 3)
+        p = p.to(dtype).float()
+    return (p @ v).to(dtype)
+
+
+def merge_heads(out):
+    """(B, H, T, hd) -> (B, T, H*hd)."""
+    b, h, t, hd = out.shape
+    return out.permute(0, 2, 1, 3).reshape(b, t, h * hd)
 
 
 def attention_excess(torch, got, want) -> float:
-    """max |got - want| / (ATTN_ATOL + ATTN_RTOL |want|): above 1 fails."""
+    """max |got - want| / (atol + rtol |want|) at the dtype's tolerance:
+    above 1 fails."""
+    atol, rtol = ((ATTN_ATOL, ATTN_RTOL) if got.dtype == torch.bfloat16
+                  else (ATTN_F32_TOL, ATTN_F32_TOL))
     want = want.float()
-    return ((got.float() - want).abs() / (ATTN_ATOL + ATTN_RTOL * want.abs())).max().item()
+    return ((got.float() - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def check_faults(torch, got, q, k, v, to_layout) -> None:
+    """Planted faults in the plain version must fail the tolerance against
+    the kernel's output."""
+    t = q.shape[2]
+    faults = {"scale x1.05": dict(scale_mult=1.05), "one key skipped": dict(keep_keys=slice(1, None))}
+    if t > 64:
+        faults["first 64-key chunk skipped"] = dict(keep_keys=slice(64, None))
+    for name, kw in faults.items():
+        bad = attention_excess(torch, got, to_layout(attention_variant(torch, q, k, v, **kw)))
+        log(f"  planted fault '{name}': err/tol={bad:.3f} (must exceed 1)")
+        if bad <= 1.0:
+            raise AssertionError(f"the attention tolerance misses the fault '{name}'")
+
+
+def attention_row(torch, F, name, run, plain, q, k, v, out, dtype):
+    """Time the kernel, its plain version and SDPA on the same (B, H, T, hd)
+    tensors; the bound counts q, k, v and the output once and 4 T^2 hd
+    operations per (batch, head)."""
+    b, h, t, hd = q.shape
+    k_ms = cuda_ms(torch, run, 20)
+    p_ms = cuda_ms(torch, plain, 3)
+    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=1 / math.sqrt(hd)), 20)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    b_ms, b_by = bound(4 * nbytes(out), 4.0 * b * h * t * t * hd, peak)
+    log(f"{name} {str(dtype)[6:]} (B={b}, H={h}, T={t}, hd={hd}): kernel_ms={k_ms:.4f} "
+        f"plain_ms={p_ms:.4f} library_ms(sdpa)={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_attention(torch, attention):
     """K1 at the encoder (252, 400, 3*512) and att_cross (1, 252, 3*512)
-    shapes; then planted faults in the plain version must fail the same
-    tolerance against the kernel."""
+    shapes in bf16, and at the encoder shape in f32; planted faults in the
+    plain version must fail the same tolerance against the kernel."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     heads, rows = 4, []
-    for b, t in ((252, 400), (1, 252)):
-        qkv = torch.randn((b, t, 1536), generator=gen, device="cuda").to(torch.bfloat16)
+    for b, t, dtype in ((252, 400, torch.bfloat16), (1, 252, torch.bfloat16),
+                        (252, 400, torch.float32)):
+        qkv = torch.randn((b, t, 1536), generator=gen, device="cuda").to(dtype)
         got = attention.mha_packed_qkv(qkv, heads)
         want = attention.mha_packed_qkv_plain(qkv, heads)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         excess = attention_excess(torch, got, want)
-        log(f"attention B={b} T={t}: max_abs_err={err:.3e} mean|out|="
+        log(f"mha_packed_qkv {str(dtype)[6:]} B={b} T={t}: max_abs_err={err:.3e} mean|out|="
             f"{want.float().abs().mean().item():.4f} err/tol={excess:.3f}")
         if excess > 1.0:
-            raise AssertionError(f"attention kernel disagrees at B={b} T={t}: max err {err}")
-        faults = {
-            "scale x1.05": dict(scale_mult=1.05),
-            "first 64-key chunk skipped": dict(keep_keys=slice(64, None)),
-            "one key skipped": dict(keep_keys=slice(1, None)),
-        }
-        for name, kw in faults.items():
-            bad = attention_excess(torch, got, attention_variant(torch, qkv, heads, **kw))
-            log(f"  planted fault '{name}': err/tol={bad:.3f} (must exceed 1)")
-            if bad <= 1.0:
-                raise AssertionError(f"the attention tolerance misses the fault '{name}'")
-        unrounded = attention_variant(torch, qkv, heads, round_p=False)
-        log(f"  P left in f32 (no fault check; below the output's own bf16 rounding): "
-            f"err/tol={attention_excess(torch, got, unrounded):.3f} max_abs="
-            f"{(got.float() - unrounded.float()).abs().max().item():.3e}")
-        q, k, v = qkv.view(b, t, 3, heads, 128).permute(2, 0, 3, 1, 4)
-        k_ms = cuda_ms(torch, lambda: attention.mha_packed_qkv(qkv, heads), 20)
-        p_ms = cuda_ms(torch, lambda: attention.mha_packed_qkv_plain(qkv, heads), 5)
-        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=1 / math.sqrt(128)), 20)
-        b_ms, b_by = bound(nbytes(qkv, got), 4.0 * b * heads * t * t * 128, BF16_FLOPS)
-        log(f"attention B={b} T={t}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-            f"library_ms(sdpa)={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
-        rows.append(dict(shape=(b, t), err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+            raise AssertionError(f"mha_packed_qkv disagrees at B={b} T={t} {dtype}: max err {err}")
+        q, k, v = split_heads(qkv, heads)
+        if dtype == torch.bfloat16:
+            check_faults(torch, got, q, k, v, merge_heads)
+            unrounded = merge_heads(attention_variant(torch, q, k, v, round_p=False))
+            log(f"  P left in f32 (no fault check; below the output's own bf16 rounding): "
+                f"err/tol={attention_excess(torch, got, unrounded):.3f} max_abs="
+                f"{(got.float() - unrounded.float()).abs().max().item():.3e}")
+        row = attention_row(torch, F, "mha_packed_qkv", lambda: attention.mha_packed_qkv(qkv, heads),
+                            lambda: attention.mha_packed_qkv_plain(qkv, heads), q, k, v, got, dtype)
+        rows.append(dict(shape=(b, t), dtype=str(dtype), err=err, **row))
+    return rows
+
+
+def check_whole_head(torch, attention):
+    """K3 in bf16 at the narrow net's (252, 4, 16, 16) and full-width 8-head
+    (252, 8, 400, 64) and (1, 8, 252, 64) shapes, with planted faults, and
+    in f32 at (252, 4, 16, 16) and (252, 8, 400, 64)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for shape, dtype in (((252, 4, 16, 16), torch.bfloat16), ((252, 8, 400, 64), torch.bfloat16),
+                         ((1, 8, 252, 64), torch.bfloat16), ((252, 4, 16, 16), torch.float32),
+                         ((252, 8, 400, 64), torch.float32)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        got = attention.mha_whole_head(q, k, v)
+        want = attention.mha_whole_head_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        excess = attention_excess(torch, got, want)
+        log(f"mha_whole_head {str(dtype)[6:]} {shape}: max_abs_err={err:.3e} mean|out|="
+            f"{want.float().abs().mean().item():.4f} err/tol={excess:.3f}")
+        if excess > 1.0:
+            raise AssertionError(f"mha_whole_head disagrees at {shape} {dtype}: max err {err}")
+        if dtype == torch.bfloat16:
+            check_faults(torch, got, q, k, v, lambda o: o)
+        row = attention_row(torch, F, "mha_whole_head", lambda: attention.mha_whole_head(q, k, v),
+                            lambda: attention.mha_whole_head_plain(q, k, v), q, k, v, got, dtype)
+        rows.append(dict(shape=shape, dtype=str(dtype), err=err, **row))
     return rows
 
 
@@ -196,6 +272,57 @@ def render_tests_needed(torch, transforms, ras, mesh, clip_mat, h: int, w: int) 
     return int(span[valid].sum().item())
 
 
+def check_rasterize(torch, np, tproc, transforms, syn, rasterize_tiled, K):
+    """K4 against its plain version: N=1 at 480x640 for the house and the
+    6016-face sphere, N=4 at 120x160 for the sphere; share of pixels whose
+    face ids agree, max error where they agree, times of the wrapper (prepass
+    + kernel), the kernel's launch alone and the plain version."""
+    from foundationpose_cpp_tpu_torch.ops import rasterize as ras
+    from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
+
+    house = MeshConstants.from_asset(tproc.textured_house(name="house"), "cuda")
+    sphere = MeshConstants.from_asset(tproc.textured_uv_sphere(radius=0.05, n_lat=48, n_lon=64), "cuda")
+    rows = []
+    for name, mesh, n, h, w in (("house", house, 1, 480, 640), ("sphere", sphere, 1, 480, 640),
+                                ("sphere", sphere, 4, 120, 160)):
+        Kt = torch.as_tensor(K, device="cuda").clone()
+        Kt[:2] *= w / 640.0  # the same field of view at any size
+        poses = np.stack([syn.default_pose(0.6) for _ in range(n)])
+        for i in range(n):
+            poses[i, :3, :3] = syn.euler_xyz_deg([0.0, 25.0 * i, 0.0]) @ poses[i, :3, :3]
+        poses = torch.as_tensor(poses, device="cuda")
+        bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]], device="cuda").expand(n, 4)
+        clip_mat = transforms.pose_clip_matrix(poses, bbox2d, Kt, h, w)
+        clip = transforms.transform_points_homogeneous(clip_mat, mesh.vertices)
+        args = (clip, mesh.faces, h, w)
+        got = rasterize_tiled.rasterize_tiled(*args, face_valid=mesh.face_valid)
+        want = rasterize_tiled.rasterize_tiled_plain(*args, face_valid=mesh.face_valid)
+        torch.cuda.synchronize()
+        agree = got[..., 3] == want[..., 3]
+        share = agree.float().mean().item()
+        err = (got[agree] - want[agree]).abs().max().item()
+        fg = (want[..., 3] > 0).float().mean().item()
+        ok = share > RASTER_AGREE and torch.allclose(got[agree], want[agree], rtol=RASTER_TOL,
+                                                     atol=RASTER_TOL)
+        log(f"rasterize_tiled {name} N={n} {h}x{w}: ids agree on {share:.6%} of pixels "
+            f"(foreground {fg:.2%}), max_abs_err where they agree={err:.3e}")
+        if not (ok and fg > 0.005):
+            raise AssertionError(f"rasterize_tiled disagrees on {name} N={n} {h}x{w}")
+        k_ms = cuda_ms(torch, lambda: rasterize_tiled.rasterize_tiled(*args, face_valid=mesh.face_valid), 20)
+        p_ms = cuda_ms(torch, lambda: rasterize_tiled.rasterize_tiled_plain(*args, face_valid=mesh.face_valid), 3)
+        coeffs, bbox = rasterize_tiled.rasterize_prepass(*args, mesh.face_valid)
+        launch_ms = cuda_ms(torch, lambda: rasterize_tiled.launch_rasterize(coeffs, bbox, h, w), 20)
+        needed = render_tests_needed(torch, transforms, ras, mesh, clip_mat, h, w)
+        b_ms, b_by = bound(nbytes(clip, mesh.faces, mesh.face_valid, got), needed * RENDER_TEST_FLOPS,
+                           F32_FLOPS)
+        log(f"rasterize_tiled {name} N={n} {h}x{w}: wrapper_ms={k_ms:.4f} (prepass + kernel) "
+            f"kernel_launch_ms={launch_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
+            f"{needed} face-pixel tests needed)")
+        rows.append(dict(name=name, n=n, err=err, share=share, ms=k_ms, launch_ms=launch_ms,
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
 def add_s(np, pts, est, gt) -> float:
     """Mean distance from each ground-truth model point to the nearest
     estimated one (symmetric ADD)."""
@@ -241,20 +368,36 @@ def stage_breakdown(torch, model, rgb, depth, mask) -> None:
     log("stages_252_ms: " + " ".join(f"{k}={v:.3f}" for k, v in times.items()))
 
 
-def run_main_path(torch, np, fp, tproc, syn, attention, render, K):
+def drift_poses(np, syn, n=6):
+    """A slow drift: 1.5 deg about y and 3 mm in x per frame."""
+    gts = []
+    for i in range(n):
+        gt = syn.default_pose(tz=0.6)
+        gt[:3, :3] = syn.euler_xyz_deg([0.0, 1.5 * i, 0.0]).astype(np.float32) @ gt[:3, :3]
+        gt[0, 3] += 0.003 * i
+        gts.append(gt)
+    return gts
+
+
+def reset_counts(kernels) -> None:
+    for fn in kernels:
+        fn.launches = 0
+
+
+def run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled, K):
     """Register + Track on the card at full width; returns launches and times."""
     from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
 
     h, w = 480, 640
     house = tproc.textured_house(name="house")
     scene_mesh = MeshConstants.from_asset(house, "cuda")
-    gts = []
-    for i in range(6):  # a slow drift: 1.5 deg about y and 3 mm in x per frame
-        gt = syn.default_pose(tz=0.6)
-        gt[:3, :3] = syn.euler_xyz_deg([0.0, 1.5 * i, 0.0]).astype(np.float32) @ gt[:3, :3]
-        gt[0, 3] += 0.003 * i
-        gts.append(gt)
+    gts = drift_poses(np, syn)
+    rasterize_tiled.rasterize_tiled.launches = 0
     frames = [syn.render_scene(scene_mesh, gt, K, h, w) for gt in gts]
+    raster_launches = rasterize_tiled.rasterize_tiled.launches
+    if raster_launches != len(gts):
+        raise AssertionError(f"render_scene launched the rasterizer {raster_launches} times, "
+                             f"want {len(gts)}")
     model = fp.create_foundationpose_model(
         str(ROOT / "weights" / "refiner_multi_full.npz"),
         str(ROOT / "weights" / "scorer_multi_full.npz"),
@@ -315,7 +458,82 @@ def run_main_path(torch, np, fp, tproc, syn, attention, render, K):
     stage_breakdown(torch, model, rgb, depth, mask)
     log(f"register_ms={reg_med:.2f} (first timed {reg_ms:.2f}) register_fps={1e3 / reg_med:.2f} "
         f"track_ms={trk_med:.2f} track_fps={1e3 / trk_med:.2f}")
-    return dict(render_launches=counts[0], attention_launches=counts[1])
+    return dict(render_launches=counts[0], attention_launches=counts[1],
+                raster_launches=raster_launches)
+
+
+def run_dataset_full_width(torch, np, tproc, syn, kernels, K, tmp):
+    """The house drift sequence written in the mustard0 layout (frames
+    through render_scene, the textured mesh through write_obj), then
+    run_dataset on it with the trained weights at 480x640."""
+    from foundationpose_cpp_tpu_torch.demo_dataset import run_dataset
+    from foundationpose_cpp_tpu_torch.meshio import mesh_loader
+
+    raster = kernels[-1]
+    house = tproc.textured_house(name="house")
+    gts = drift_poses(np, syn)
+    root = tmp / "house_seq"
+    reset_counts(kernels)
+    syn.write_sequence(str(root), house, gts, K, 480, 640, texture=True, device="cuda")
+    written = raster.launches
+    loaded = mesh_loader.load_mesh("target", str(root / "mesh" / "house.obj"))
+    want_tex = (house.texture * 255).astype(np.uint8).astype(np.float32) / 255.0
+    if loaded.texture.shape != (96, 96, 3) or not np.array_equal(loaded.texture, want_tex):
+        raise AssertionError(f"the written mesh loads with texture {loaded.texture.shape}, not its PNG")
+    t0 = time.perf_counter()
+    summary = run_dataset(str(root), str(tmp / "house_out"),
+                          refiner=str(ROOT / "weights" / "refiner_multi_full.npz"),
+                          scorer=str(ROOT / "weights" / "scorer_multi_full.npz"),
+                          write_overlays=True, device="cuda")
+    wall_s = time.perf_counter() - t0
+    counts = tuple(k.launches for k in kernels)
+    n = len(gts)
+    want = (3 + (n - 1), 0, 2 + (n - 1), n)
+    log(f"dataset full width: launches (packed attention, head-split attention, render, "
+        f"rasterize) = {counts}, want {want}")
+    if counts != want or written != n:
+        raise AssertionError(f"the full-width dataset path launched {counts}, want {want}")
+    poses = [np.loadtxt(tmp / "house_out" / f"pose_{i:06d}.txt") for i in range(n)]
+    pts = surface_points(np, house)
+    adds = add_s(np, pts, poses[0], gts[0])
+    rot = [rot_err_deg(np, pose, gt) for pose, gt in zip(poses, gts)]
+    log(f"dataset full width: register ADD-S={adds * 1e3:.2f} mm (limit "
+        f"{house.diameter * 100:.1f} mm) rot_err_deg: " + " ".join(f"{r:.2f}" for r in rot)
+        + f" | summary adds_mean={summary['adds_mean'] * 1e3:.2f} mm "
+        f"track_ms_mean={summary['track_ms_mean']:.2f} run_dataset_wall_s={wall_s:.2f}")
+    if adds >= 0.1 * house.diameter:
+        raise AssertionError(f"dataset Register ADD-S {adds:.4f} m >= 0.1 x diameter")
+    if max(rot) >= 5.0:
+        raise AssertionError(f"dataset rotation error reached {max(rot):.2f} deg")
+    return dict(track_ms_mean=summary["track_ms_mean"])
+
+
+def run_dataset_narrow(torch, np, syn, kernels, tmp):
+    """write_mini_dataset at its defaults (120x160, crop 32), then
+    run_dataset with seeded narrow nets (embed 64, 4 heads of 16): attention
+    goes through the head-split kernel, never the packed one."""
+    from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
+    from foundationpose_cpp_tpu_torch.demo_dataset import run_dataset
+    from foundationpose_cpp_tpu_torch.models import networks
+
+    raster = kernels[-1]
+    cfg = FoundationPoseConfig(crop_window_h=32, crop_window_w=32)
+    net = networks.NetConfig(width1=8, width2=16, embed_dim=64, num_heads=4, crop_hw=32)
+    reset_counts(kernels)
+    syn.write_mini_dataset(str(tmp / "mini"), n_frames=3, cfg=cfg, device="cuda")
+    written = raster.launches
+    run_dataset(str(tmp / "mini"), str(tmp / "mini_out"), config=cfg, net_config=net,
+                write_overlays=False, device="cuda")
+    counts = tuple(k.launches for k in kernels)
+    log(f"dataset narrow: launches (packed attention, head-split attention, render, "
+        f"rasterize) = {counts}")
+    if written != 3 or counts[0] != 0 or counts[1] != 4 or counts[2] != 4:
+        raise AssertionError(f"the narrow dataset path launched {counts} (rasterize {written} "
+                             f"while writing), want (0, 4, 4, 3)")
+    poses = [np.loadtxt(tmp / "mini_out" / f"pose_{i:06d}.txt") for i in range(3)]
+    if not all(p.shape == (4, 4) and np.isfinite(p).all() for p in poses):
+        raise AssertionError("the narrow dataset path gave a pose that is not a finite 4x4")
+    return dict(whole_head_launches=counts[1])
 
 
 def main() -> int:
@@ -334,7 +552,7 @@ def main() -> int:
         from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
         from foundationpose_cpp_tpu_torch.geometry import icosphere, transforms
         from foundationpose_cpp_tpu_torch.meshio import procedural as tproc
-        from foundationpose_cpp_tpu_torch.ops import attention, cuda_build, render
+        from foundationpose_cpp_tpu_torch.ops import attention, cuda_build, rasterize_tiled, render
         from foundationpose_cpp_tpu_torch.utils import synthetic as syn
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script: {exc}", file=sys.stderr)
@@ -358,24 +576,40 @@ def main() -> int:
     cfg = FoundationPoseConfig()
     K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], np.float32)
     attn_rows = check_attention(torch, attention)
+    head_rows = check_whole_head(torch, attention)
     render_row = check_render(torch, np, tproc, transforms, icosphere, render, syn, cfg, K)
-    launches = run_main_path(torch, np, fp, tproc, syn, attention, render, K)
+    raster_rows = check_rasterize(torch, np, tproc, transforms, syn, rasterize_tiled, K)
+    launches = run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled, K)
+    counted = (attention.mha_packed_qkv, attention.mha_whole_head, render.render_views,
+               rasterize_tiled.rasterize_tiled)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dataset_full_width(torch, np, tproc, syn, counted, K, pathlib.Path(tmp))
+        narrow = run_dataset_narrow(torch, np, syn, counted, pathlib.Path(tmp))
 
-    enc = attn_rows[0]
+    def row(r):
+        return {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
     kernels = [
         dict(name="mha_packed_qkv", route="cuda",
              source="foundationpose_cpp_tpu_torch/csrc/attention.cu",
              replaces="foundationpose_cpp_tpu/ops/attention_pallas.py:110",
              launches=launches["attention_launches"], max_abs_err=max(r["err"] for r in attn_rows),
-             ms=enc["ms"], plain_ms=enc["plain_ms"], bound_ms=enc["bound_ms"],
-             bound_by=enc["bound_by"], library_ms=enc["library_ms"]),
+             **row(attn_rows[0])),
         dict(name="render_views", route="cuda",
              source="foundationpose_cpp_tpu_torch/csrc/render.cu",
              replaces="foundationpose_cpp_tpu/ops/render_fused.py:502",
              launches=launches["render_launches"], max_abs_err=render_row["err"],
-             ms=render_row["ms"], plain_ms=render_row["plain_ms"],
-             bound_ms=render_row["bound_ms"], bound_by=render_row["bound_by"],
-             library_ms=None),
+             **row(dict(render_row, library_ms=None))),
+        dict(name="mha_whole_head", route="cuda",
+             source="foundationpose_cpp_tpu_torch/csrc/attention.cu",
+             replaces="foundationpose_cpp_tpu/ops/attention_pallas.py:41",
+             launches=narrow["whole_head_launches"], max_abs_err=max(r["err"] for r in head_rows),
+             **row(head_rows[0])),
+        dict(name="rasterize_tiled", route="cuda",
+             source="foundationpose_cpp_tpu_torch/csrc/rasterize.cu",
+             replaces="foundationpose_cpp_tpu/ops/rasterize_pallas.py:66",
+             launches=launches["raster_launches"], max_abs_err=max(r["err"] for r in raster_rows),
+             **row(dict(raster_rows[0], library_ms=None))),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,29 +27,24 @@
 // against every face whose bbox meets the tile, back faces included, so on
 // a dense mesh (6016 faces) the tests, not the bytes, set its time.
 //
-// What the design does about it: one block per (view, 32x32 tile); 256
-// threads, each owning 4 pixels of one column, so one face's 15 coefficients
-// read from shared memory serve 4 pixel tests. The block walks the view's
-// faces in batches of 256: each thread tests one face's bbox against the
-// tile and appends the survivors to a shared list, which all threads then
-// test against their pixels. Depth is kept as a full f32 with an int face id
-// (no packed keys), and only the winner's attributes and texels are fetched.
+// What the design does about it: one block per (view, 32x32 tile) runs the
+// nearest-face pass of raster_tile.cuh (256 threads, each owning 4 pixels of
+// one column; faces staged through shared memory in batches of 256 after a
+// bbox test against the tile). Depth is kept as a full f32 with an int face
+// id (no packed keys), and only the winner's attributes and texels are
+// fetched.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "raster_tile.cuh"
+
 namespace {
 
-constexpr int TILE = 32;
-constexpr int NTHREAD = 256;
-constexpr int ROWS = TILE * TILE / NTHREAD;  // pixels per thread, one column
-constexpr int BATCH = NTHREAD;               // faces tested per staging round
-
-__device__ __forceinline__ float plane(float cx, float cy, float c1, float fx, float fy) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(cx, fx), __fmul_rn(cy, fy)), c1);
-}
-
-__device__ __forceinline__ float clamp01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
+using raster_tile::clamp01;
+using raster_tile::NTHREAD;
+using raster_tile::ROWS;
+using raster_tile::TILE;
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
@@ -60,72 +55,12 @@ render_kernel(const float* __restrict__ coeffs, const int4* __restrict__ bbox,
               float* __restrict__ out, int F, int V, int H, int W, int Th, int Tw,
               float ds, float min_depth, float max_depth, float w_ambient,
               float w_diffuse) {
-  __shared__ float sc[15][BATCH];
-  __shared__ int sid[BATCH];
-  __shared__ int count;
-
   const int n = blockIdx.z;
-  const int tx0 = blockIdx.x * TILE;
   const int ty0 = blockIdx.y * TILE;
-  const int x = tx0 + threadIdx.x % TILE;
-  const int ly = threadIdx.x / TILE;
-  const float fx = __fsub_rn(__fdiv_rn((float)(2 * x + 1), (float)W), 1.0f);
-  float fy[ROWS], best_zw[ROWS], ba0[ROWS], ba1[ROWS], ba2[ROWS];
-  int best_id[ROWS];
-#pragma unroll
-  for (int k = 0; k < ROWS; ++k) {
-    const int y = ty0 + ly + k * (NTHREAD / TILE);
-    fy[k] = __fsub_rn(__fdiv_rn((float)(2 * y + 1), (float)H), 1.0f);
-    best_zw[k] = INFINITY;
-    best_id[k] = -1;
-    ba0[k] = ba1[k] = ba2[k] = 0.0f;
-  }
-
   // phase 1: nearest covering face per pixel, lowest id on equal depth
-  for (int base = 0; base < F; base += BATCH) {
-    if (threadIdx.x == 0) count = 0;
-    __syncthreads();
-    const int f = base + threadIdx.x;
-    if (f < F) {
-      const int4 bb = bbox[(size_t)n * F + f];  // x0, x1, y0, y1 (inclusive)
-      if (bb.x <= bb.y && bb.x < tx0 + TILE && bb.y >= tx0 && bb.z < ty0 + TILE &&
-          bb.w >= ty0) {
-        const int slot = atomicAdd(&count, 1);
-        const float* c = coeffs + ((size_t)n * F + f) * 15;
-#pragma unroll
-        for (int q = 0; q < 15; ++q) sc[q][slot] = c[q];
-        sid[slot] = f;
-      }
-    }
-    __syncthreads();
-    const int cnt = count;
-    for (int i = 0; i < cnt; ++i) {
-      float c[15];
-#pragma unroll
-      for (int q = 0; q < 15; ++q) c[q] = sc[q][i];
-      const int fid = sid[i];
-#pragma unroll
-      for (int k = 0; k < ROWS; ++k) {
-        const float a0 = plane(c[0], c[1], c[2], fx, fy[k]);
-        const float a1 = plane(c[3], c[4], c[5], fx, fy[k]);
-        const float a2 = plane(c[6], c[7], c[8], fx, fy[k]);
-        const bool pos = a0 >= 0.0f && a1 >= 0.0f && a2 >= 0.0f;
-        const bool neg = a0 <= 0.0f && a1 <= 0.0f && a2 <= 0.0f;
-        if (!(pos || neg) || __fadd_rn(__fadd_rn(a0, a1), a2) == 0.0f) continue;
-        const float zw = __fdiv_rn(plane(c[9], c[10], c[11], fx, fy[k]),
-                                   plane(c[12], c[13], c[14], fx, fy[k]));
-        if (!(zw >= -1.0f && zw <= 1.0f)) continue;
-        if (zw < best_zw[k] || (zw == best_zw[k] && fid < best_id[k])) {
-          best_zw[k] = zw;
-          best_id[k] = fid;
-          ba0[k] = a0;
-          ba1[k] = a1;
-          ba2[k] = a2;
-        }
-      }
-    }
-    __syncthreads();  // the list is consumed before the next round refills it
-  }
+  const raster_tile::Winners win = raster_tile::nearest_faces(coeffs, bbox, n, F, H, W);
+  const int x = win.x;
+  const int ly = win.ly;
 
   // phase 2: the winner's attributes, texture, shading and xyz; flipped row
   if (x >= W) return;
@@ -135,16 +70,16 @@ render_kernel(const float* __restrict__ coeffs, const int4* __restrict__ bbox,
     const int y = ty0 + ly + k * (NTHREAD / TILE);
     if (y >= H) continue;
     float* o = out + (((size_t)n * H + (H - 1 - y)) * W + x) * 6;
-    if (best_id[k] < 0) {
+    if (win.best_id[k] < 0) {
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch) o[ch] = 0.0f;
       continue;
     }
-    const float iw = __fdiv_rn(1.0f, __fadd_rn(__fadd_rn(ba0[k], ba1[k]), ba2[k]));
-    const float b0 = clamp01(__fmul_rn(ba0[k], iw));
-    const float b1 = clamp01(__fmul_rn(ba1[k], iw));
+    const float iw = __fdiv_rn(1.0f, __fadd_rn(__fadd_rn(win.a0[k], win.a1[k]), win.a2[k]));
+    const float b0 = clamp01(__fmul_rn(win.a0[k], iw));
+    const float b1 = clamp01(__fmul_rn(win.a1[k], iw));
     const float b2 = __fsub_rn(__fsub_rn(1.0f, b0), b1);
-    const int* fv = faces + (size_t)best_id[k] * 3;
+    const int* fv = faces + (size_t)win.best_id[k] * 3;
     const float* A0 = attrs + ((size_t)n * V + fv[0]) * 6;
     const float* A1 = attrs + ((size_t)n * V + fv[1]) * 6;
     const float* A2 = attrs + ((size_t)n * V + fv[2]) * 6;

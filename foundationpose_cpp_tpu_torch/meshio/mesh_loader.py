@@ -32,6 +32,8 @@ import pathlib
 
 import numpy as np
 
+from foundationpose_cpp_tpu_torch.utils import png
+
 GRAY_FALLBACK_RGB = (100, 100, 100)
 
 
@@ -140,18 +142,37 @@ def compute_vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarra
 
 
 def _load_texture_image(path: str | None) -> np.ndarray:
-    """RGB f32 [0,1] texture; 2x2 gray fallback like the reference (:216-223)."""
-    img = None
-    if path and os.path.exists(path):
+    """RGB f32 [0,1] texture.
+
+    No texture file gives the reference's 2x2 gray fallback (:216-223). A
+    PNG decodes through ``utils/png.py``; another format goes through PIL
+    where PIL can be imported and raises ValueError otherwise. A texture
+    file that exists never silently turns gray.
+    """
+    if not (path and os.path.exists(path)):
+        img = np.full((2, 2, 3), GRAY_FALLBACK_RGB, dtype=np.uint8)
+        return img.astype(np.float32) / 255.0
+    with open(path, "rb") as fh:
+        is_png = fh.read(len(png.SIGNATURE)) == png.SIGNATURE
+    if is_png:
+        img = png.read_png(path)
+        if img.dtype == np.uint16:  # 16-bit samples keep their high byte
+            img = (img >> 8).astype(np.uint8)
+        if img.ndim == 2:
+            img = np.stack([img] * 3, axis=-1)
+        elif img.shape[-1] == 2:
+            img = np.stack([img[..., 0]] * 3, axis=-1)
+        img = img[..., :3]
+    else:
         try:
             from PIL import Image
-
-            img = np.asarray(Image.open(path).convert("RGB"))
-        except Exception:
-            img = None
-    if img is None:
-        img = np.full((2, 2, 3), GRAY_FALLBACK_RGB, dtype=np.uint8)
-    return img.astype(np.float32) / 255.0
+        except ImportError:
+            raise ValueError(
+                f"[MeshLoader] texture {path} is not a PNG and PIL is not "
+                "installed to decode it"
+            ) from None
+        img = np.asarray(Image.open(path).convert("RGB"))
+    return np.ascontiguousarray(img).astype(np.float32) / 255.0
 
 
 def _parse_mtl_texture(mtl_path: pathlib.Path) -> str | None:

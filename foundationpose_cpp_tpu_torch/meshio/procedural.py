@@ -1,7 +1,10 @@
-"""Procedural test meshes (textured cube / house / UV-sphere).
+"""Procedural test meshes (textured cube / house / UV-sphere) and an OBJ
+writer.
 
-A copy of the four generators of ``foundationpose_cpp_tpu_torch.meshio.procedural``
-that the port's tests and smoke run need.
+A copy of the four generators and ``write_obj`` of
+``foundationpose_cpp_tpu.meshio.procedural`` that the port's tests, the
+dataset writer and the smoke run need; the texture PNG goes through
+``utils/png.py``.
 
 The reference validates against the mustard0 dataset, which is a gated
 download (test_data/download.md); these procedural assets give the test suite
@@ -13,10 +16,12 @@ from __future__ import annotations
 
 import itertools
 import math
+import pathlib
 
 import numpy as np
 
 from foundationpose_cpp_tpu_torch.meshio.mesh_loader import MeshAsset, make_mesh_asset
+from foundationpose_cpp_tpu_torch.utils import png
 
 
 def checkerboard_texture(size: int = 64, squares: int = 8) -> np.ndarray:
@@ -269,3 +274,29 @@ def textured_uv_sphere(
         np.asarray(normals, np.float32),
         checkerboard_texture(),
     )
+
+
+def write_obj(asset: MeshAsset, path: str, texture_path: str | None = None) -> None:
+    """Write an asset as OBJ, plus an MTL file and a PNG texture when
+    ``texture_path`` is given (procedural.py:336-365)."""
+    lines = []
+    mtl_name = None
+    if texture_path is not None:
+        png.write_png(texture_path, (asset.texture * 255).astype(np.uint8))
+        mtl_path = pathlib.Path(path).with_suffix(".mtl")
+        tex_rel = pathlib.Path(texture_path).name
+        mtl_path.write_text(f"newmtl material0\nKd 1 1 1\nmap_Kd {tex_rel}\n")
+        lines.append(f"mtllib {mtl_path.name}")
+        mtl_name = "material0"
+    for v in asset.vertices:
+        lines.append(f"v {v[0]} {v[1]} {v[2]}")
+    for t in asset.texcoords:
+        lines.append(f"vt {t[0]} {t[1]}")
+    for n in asset.vertex_normals:
+        lines.append(f"vn {n[0]} {n[1]} {n[2]}")
+    if mtl_name:
+        lines.append(f"usemtl {mtl_name}")
+    for f in asset.faces:
+        lines.append("f " + " ".join(f"{i + 1}/{i + 1}/{i + 1}" for i in f))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")

@@ -20,8 +20,11 @@ and outputs are NHWC at the public boundary, like the JAX functions; inside,
 ``permute(0, 3, 1, 2)`` gives the convolutions a channels-last NCHW view with
 no copy. Convs and the qkv/proj/FFN projections run in the input dtype
 (bf16 on the card, f32 accumulation in cuDNN and cuBLAS); LayerNorm
-statistics and the heads run in f32. The attention core is
-``ops.attention.mha_packed_qkv``: the CUDA kernel on the card.
+statistics and the heads run in f32. The attention core is a CUDA kernel
+on the card, routed as the JAX function routes its Pallas kernels: a head
+width that is a multiple of 128 reads the packed projection
+(``ops.attention.mha_packed_qkv``), any other splits heads first
+(``ops.attention.mha_whole_head``).
 """
 
 from __future__ import annotations
@@ -137,8 +140,18 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = self.qkv(x)  # (N, T, 3D)
-        hd = x.shape[-1] // self.num_heads
-        out = attention.mha_packed_qkv(qkv, self.num_heads, 1.0 / math.sqrt(hd))
+        n, t, d = x.shape
+        hd = d // self.num_heads
+        if hd % 128 == 0:
+            # heads are column slices of the projection: no transposes
+            out = attention.mha_packed_qkv(qkv, self.num_heads, 1.0 / math.sqrt(hd))
+        else:
+            # other widths split heads to (N, H, T, hd), as the JAX function
+            # does before mha_whole_head, and merge them back
+            q, k, v = (a.contiguous() for a in
+                       qkv.reshape(n, t, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4))
+            out = attention.mha_whole_head(q, k, v, 1.0 / math.sqrt(hd))
+            out = out.permute(0, 2, 1, 3).reshape(n, t, d)
         return self.proj(out)
 
 
@@ -234,6 +247,24 @@ class _Backbone(nn.Module):
                 module.weight.data = module.weight.data.to(dtype)
                 module.bias.data = module.bias.data.to(dtype)
         return self
+
+
+def init_net(kind: str, cfg: NetConfig = NetConfig(), seed: int = 0) -> _Backbone:
+    """A RefineNet ("refiner") or ScoreNet ("scorer") with random weights
+    drawn from ``torch.Generator().manual_seed(seed)``: He-normal convs,
+    N(0, 1/din) linears, zero biases. Stands in for trained weights where
+    only the shapes matter (tests, the smoke run's narrow dataset phase)."""
+    net = {"refiner": RefineNet, "scorer": ScoreNet}[kind](cfg)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in net.modules():
+            if isinstance(module, Conv):
+                std = math.sqrt(2.0 / module.weight[0].numel())
+                module.weight.copy_(torch.randn(module.weight.shape, generator=gen) * std)
+            elif isinstance(module, Linear):
+                std = 1.0 / math.sqrt(module.weight.shape[1])
+                module.weight.copy_(torch.randn(module.weight.shape, generator=gen) * std)
+    return net.eval()
 
 
 class RefineNet(_Backbone):

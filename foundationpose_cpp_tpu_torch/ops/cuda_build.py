@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exports a plain C entry point and compiles on its
 own into ``lib<name>_<digest>.so`` under ``BUILD_DIR`` (the checkout's
 ``build/fp_torch_kernels``, or a cache directory for an installed package),
-where the digest covers the source and the flags, so an edited source never
-loads a stale library. Nothing is built when the package is imported: a
+where the digest covers the source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source never loads a stale library. Nothing is built when the package is imported: a
 wrapper builds its library on first use, and ``build`` starts one nvcc per
 source, all at once.
 """
@@ -39,7 +39,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("attention", "render")
+KERNEL_SOURCES = ("attention", "render", "rasterize")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -57,7 +57,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

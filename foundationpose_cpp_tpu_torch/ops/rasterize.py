@@ -58,10 +58,15 @@ def edge_coefficients(clip: torch.Tensor, faces: torch.Tensor) -> tuple[torch.Te
 
 
 def pixel_basis(h: int, w: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """NDC pixel-center coordinates fx (w,), fy (h,)."""
-    fx = (2.0 * torch.arange(w, dtype=torch.float32, device=device) + 1.0) / w - 1.0
-    fy = (2.0 * torch.arange(h, dtype=torch.float32, device=device) + 1.0) / h - 1.0
-    return fx, fy
+    """NDC pixel-center coordinates fx (w,), fy (h,).
+
+    Computed on the CPU and then moved: on the card, PyTorch divides a
+    tensor by a scalar as a multiply by its rounded reciprocal, one ulp off
+    the true quotient that the CPU (and the kernels) take.
+    """
+    fx = (2.0 * torch.arange(w, dtype=torch.float32) + 1.0) / w - 1.0
+    fy = (2.0 * torch.arange(h, dtype=torch.float32) + 1.0) / h - 1.0
+    return fx.to(device), fy.to(device)
 
 
 def _plane(c: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:

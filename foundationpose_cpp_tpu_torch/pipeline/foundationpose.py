@@ -155,7 +155,8 @@ def _as_net(net, kind: str, device: torch.device, dtype: torch.dtype):
 class FoundationPose:
     """Multi-mesh 6-DoF pose estimator (CreateFoundationPoseModel parity).
 
-    refiner / scorer: a ``RefineNet`` / ``ScoreNet``, a state_dict from
+    refiner / scorer: a ``RefineNet`` / ``ScoreNet`` (which keeps its own
+    ``NetConfig``, so narrow nets run unchanged), a state_dict from
     ``convert_jax``, or the path of a ``weights/*_full.npz`` checkpoint.
     device: None means "cuda" and raises RuntimeError when no card is
     present; pass device="cpu" for the plain PyTorch versions on the CPU.
@@ -185,10 +186,12 @@ class FoundationPose:
         self._max_h = max_input_image_h
         self._max_w = max_input_image_w
         self._meshes: dict[str, MeshConstants] = {}
+        self._assets: dict[str, MeshAsset] = {}
         for asset in mesh_assets:
             if asset.name in self._meshes:
                 raise ValueError(f"[FoundationPose] duplicate mesh name '{asset.name}'")
             self._meshes[asset.name] = MeshConstants.from_asset(asset, self._device)
+            self._assets[asset.name] = asset
         self._rot_grid = torch.as_tensor(
             icosphere.make_rotation_grid(config.n_views, config.inplane_step_deg),
             device=self._device,
@@ -307,6 +310,10 @@ class FoundationPose:
             mesh.model_center,
             mesh.orient_bounds,
         ).cpu().numpy()
+
+    def object_dimension(self, target_name: str) -> np.ndarray:
+        """Extents of the mesh in its PCA basis (the oriented bbox size)."""
+        return self._assets[target_name].dimensions
 
 
 def create_foundationpose_model(

@@ -1,22 +1,31 @@
-"""Synthetic RGB-D scenes for tests and the smoke run.
+"""Synthetic RGB-D scenes and datasets for tests, the demo and the smoke run.
 
-Counterpart of ``render_scene`` and ``default_pose`` of
-``foundationpose_cpp_tpu.utils.synthetic``: renders a mesh at a known pose
-into a full-frame RGB, metric depth and mask through the plain rasterizer
-(``ops/rasterize.py``), the stand-in for a recorded dataset.
+Counterpart of ``foundationpose_cpp_tpu.utils.synthetic``: ``render_scene``
+renders a mesh at a known pose into a full-frame RGB, metric depth and mask,
+and ``write_mini_dataset`` writes a short sequence in the reference's
+mustard0 layout (test_data/download.md), the stand-in for a recorded
+dataset. A mesh on the card rasterizes through the full-frame kernel
+(``ops/rasterize_tiled.py``), a CPU mesh through its plain version; images
+are written through ``utils/png.py``.
 """
 
 from __future__ import annotations
 
 import math
+import pathlib
 
 import numpy as np
 import torch
 
 from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
 from foundationpose_cpp_tpu_torch.geometry import transforms
+from foundationpose_cpp_tpu_torch.meshio import procedural
+from foundationpose_cpp_tpu_torch.meshio.mesh_loader import MeshAsset
 from foundationpose_cpp_tpu_torch.ops import rasterize as ras
+from foundationpose_cpp_tpu_torch.ops.rasterize_tiled import rasterize_tiled
 from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
+from foundationpose_cpp_tpu_torch.utils import png
+from foundationpose_cpp_tpu_torch.utils.device import resolve_device
 
 
 @torch.inference_mode()
@@ -37,7 +46,7 @@ def render_scene(
     bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]], device=dev)
     clip_mat = transforms.pose_clip_matrix(poses, bbox2d, Kt, h, w, cfg.znear, cfg.zfar)
     clip = transforms.transform_points_homogeneous(clip_mat, mesh.vertices)
-    rast = ras.rasterize(clip, mesh.faces, h, w, face_valid=mesh.face_valid)
+    rast = rasterize_tiled(clip, mesh.faces, h, w, face_valid=mesh.face_valid)
 
     pts_cam = transforms.transform_points(poses, mesh.vertices)
     xyz = ras.interpolate_attributes(pts_cam, rast, mesh.faces)
@@ -73,3 +82,59 @@ def default_pose(tz: float = 0.6) -> np.ndarray:
     pose[:3, :3] = euler_xyz_deg([25, -15, 40])
     pose[:3, 3] = [0.02, -0.01, tz]
     return pose
+
+
+def write_sequence(
+    root: str,
+    asset: MeshAsset,
+    poses: list[np.ndarray],
+    K: np.ndarray,
+    h: int,
+    w: int,
+    cfg: FoundationPoseConfig | None = None,
+    texture: bool = True,
+    device=None,
+) -> None:
+    """Write ``asset`` rendered at each pose as a mustard0-layout dataset:
+    rgb/, depth/ (16-bit mm), masks/, mesh/<name>.obj (with an MTL file and
+    a PNG texture when ``texture``), cam_K.txt and annotated_poses/.
+    Renders on ``device`` (None: the card)."""
+    cfg = cfg or FoundationPoseConfig()
+    root_p = pathlib.Path(root)
+    for sub in ("rgb", "depth", "masks", "mesh", "annotated_poses"):
+        (root_p / sub).mkdir(parents=True, exist_ok=True)
+    np.savetxt(root_p / "cam_K.txt", K, fmt="%.6f")
+    obj = root_p / "mesh" / f"{asset.name}.obj"
+    procedural.write_obj(asset, str(obj), str(obj.with_suffix(".png")) if texture else None)
+    mesh = MeshConstants.from_asset(asset, resolve_device(device))
+    for i, pose in enumerate(poses):
+        fid = f"{i:06d}"
+        rgb, depth, mask = render_scene(mesh, pose, K, h, w, cfg)
+        png.write_png(str(root_p / "rgb" / f"{fid}.png"), rgb)
+        png.write_png(str(root_p / "depth" / f"{fid}.png"),
+                      np.round(depth * 1000.0).astype(np.uint16))
+        png.write_png(str(root_p / "masks" / f"{fid}.png"), mask)
+        np.savetxt(root_p / "annotated_poses" / f"{fid}.txt", pose, fmt="%.8f")
+
+
+def write_mini_dataset(
+    root: str,
+    n_frames: int = 3,
+    h: int = 120,
+    w: int = 160,
+    cfg: FoundationPoseConfig | None = None,
+    device=None,
+) -> np.ndarray:
+    """Write a tiny mustard0-layout dataset of a moving textured cube, as the
+    JAX package's ``write_mini_dataset`` does (its OBJ carries no texture).
+    Returns the (3, 3) intrinsics."""
+    cfg = cfg or FoundationPoseConfig(crop_window_h=32, crop_window_w=32)
+    K = np.array([[300.0, 0, w / 2], [0, 300.0, h / 2], [0, 0, 1]], np.float32)
+    poses = []
+    for i in range(n_frames):
+        pose = default_pose(tz=0.5 + 0.004 * i)
+        pose[0, 3] += 0.003 * i
+        poses.append(pose)
+    write_sequence(root, procedural.textured_cube(size=0.1), poses, K, h, w, cfg,
+                   texture=False, device=device)
+    return K

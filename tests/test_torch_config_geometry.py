@@ -147,11 +147,13 @@ def test_crop_window_rounds_half_away_from_zero():
 
 
 def test_port_imports_no_jax():
-    """The port package pulls in neither JAX nor the JAX package."""
+    """No module of the port package pulls in JAX or the JAX package."""
     code = (
-        "import sys, foundationpose_cpp_tpu_torch\n"
-        "import foundationpose_cpp_tpu_torch.ops.render, foundationpose_cpp_tpu_torch.ops.attention\n"
-        "import foundationpose_cpp_tpu_torch.utils.synthetic, foundationpose_cpp_tpu_torch.models.convert_jax\n"
+        "import importlib, pkgutil, sys, foundationpose_cpp_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "for n in ('ops.rasterize_tiled', 'utils.png', 'utils.io', 'utils.metrics', 'utils.viz',"
+        " 'demo_dataset'): assert 'foundationpose_cpp_tpu_torch.' + n in sys.modules, n\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'foundationpose_cpp_tpu.'))"
         " or m == 'foundationpose_cpp_tpu']\n"
         "assert not bad, bad\n"

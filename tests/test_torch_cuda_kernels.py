@@ -5,20 +5,31 @@ nor the JAX package, so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-Tolerances: attention within atol 2**-9 + rtol 2**-6 (4 bf16 ulps at the
-outputs' typical size ~0.1, plus 2 ulps of the value), as ``chip_smoke.py``
-holds it; renders under 1% of pixels off by more than 2e-3, as the CPU tests.
+Tolerances: attention in bf16 within atol 2**-9 + rtol 2**-6 (4 bf16 ulps at
+the outputs' typical size ~0.1, plus 2 ulps of the value), as
+``chip_smoke.py`` holds it; in f32 within atol 1e-5 + rtol 1e-5 (f32 sums
+of up to 1024 terms in another order); renders under 1% of pixels off by
+more than 2e-3, as the CPU tests; the rasterizer with face ids agreeing on
+more than 99.5% of pixels and rtol = atol = 1e-4 where they agree, the JAX
+suite's floor for its TPU rasterizer (tests/test_rasterize_pallas.py:27-30).
 """
+
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
+from foundationpose_cpp_tpu_torch import create_foundationpose_model
 from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
 from foundationpose_cpp_tpu_torch.geometry import transforms
 from foundationpose_cpp_tpu_torch.meshio import procedural
-from foundationpose_cpp_tpu_torch.ops import attention, render
+from foundationpose_cpp_tpu_torch.ops import attention, rasterize_tiled, render
 from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
+from foundationpose_cpp_tpu_torch.utils import synthetic
+
+WEIGHTS = pathlib.Path(__file__).resolve().parents[1] / "weights"
+F32_TOL = 1e-5
 
 pytestmark = pytest.mark.cuda
 
@@ -42,11 +53,108 @@ def test_attention_kernel_matches_plain(card, b, t, heads, hd):
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-6, atol=2.0**-9)
 
 
+@pytest.mark.parametrize("b,t,heads,hd", [(3, 40, 2, 128), (2, 400, 4, 128), (1, 252, 4, 128),
+                                          (2, 77, 4, 16)])
+def test_attention_kernel_f32_matches_plain(card, b, t, heads, hd):
+    gen = torch.Generator(device=card).manual_seed(1)
+    qkv = torch.randn((b, t, 3 * heads * hd), generator=gen, device=card)
+    got = attention.mha_packed_qkv(qkv, heads)
+    want = attention.mha_packed_qkv_plain(qkv, heads)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,heads,t,hd", [(252, 8, 400, 64), (1, 8, 252, 64), (252, 4, 16, 16),
+                                          (3, 2, 1024, 48), (2, 3, 33, 112)])
+def test_whole_head_kernel_matches_plain(card, dtype, b, heads, t, hd):
+    gen = torch.Generator(device=card).manual_seed(2)
+    q, k, v = (torch.randn((b, heads, t, hd), generator=gen, device=card).to(getattr(torch, dtype))
+               for _ in range(3))
+    before = attention.mha_whole_head.launches
+    got = attention.mha_whole_head(q, k, v)
+    assert attention.mha_whole_head.launches == before + 1
+    want = attention.mha_whole_head_plain(q, k, v)
+    tol = (2.0**-6, 2.0**-9) if dtype == "bfloat16" else (F32_TOL, F32_TOL)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
 def test_attention_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="bf16"):
-        attention.mha_packed_qkv(torch.zeros((1, 8, 3 * 128), device=card), 1)
+        attention.mha_packed_qkv(torch.zeros((1, 8, 3 * 128), device=card, dtype=torch.float16), 1)
     with pytest.raises(ValueError, match="tokens"):
         attention.mha_packed_qkv(torch.zeros((1, 1025, 3 * 128), device=card, dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.mha_whole_head(*(torch.zeros((1, 1, 8, 24), device=card) for _ in range(3)))
+
+
+def _random_clip(n, v, seed, card):
+    """Random clip-space vertices in front of the camera (w > 0)."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(1.0, 3.0, size=(n, v, 1))
+    xy = rng.uniform(-1.0, 1.0, size=(n, v, 2)) * w
+    z = rng.uniform(-0.9, 0.9, size=(n, v, 1)) * w
+    return torch.as_tensor(np.concatenate([xy, z, w], axis=-1), dtype=torch.float32, device=card)
+
+
+def _scene_clip(asset, h, w, card):
+    mesh = MeshConstants.from_asset(asset, card)
+    K = torch.tensor([[600.0 * w / 640, 0, w / 2], [0, 600.0 * h / 480, h / 2], [0, 0, 1]],
+                     device=card)
+    pose = torch.as_tensor(synthetic.default_pose(0.5), device=card)[None]
+    bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]], device=card)
+    clip_mat = transforms.pose_clip_matrix(pose, bbox2d, K, h, w)
+    return transforms.transform_points_homogeneous(clip_mat, mesh.vertices), mesh.faces, mesh.face_valid
+
+
+@pytest.mark.parametrize("case", ["house_480x640", "sphere_480x640", "random_n4_120x160",
+                                  "random_37x53", "behind_camera"])
+def test_rasterize_kernel_matches_plain(card, case):
+    if case == "house_480x640":
+        (clip, faces, valid), h, w = _scene_clip(procedural.textured_house(), 480, 640, card), 480, 640
+    elif case == "sphere_480x640":
+        sphere = procedural.textured_uv_sphere(radius=0.05, n_lat=48, n_lon=64)
+        (clip, faces, valid), h, w = _scene_clip(sphere, 480, 640, card), 480, 640
+    else:
+        n = 4 if case == "random_n4_120x160" else 1
+        h, w = (120, 160) if n == 4 else (37, 53)
+        clip = _random_clip(n, 40, 0, card)
+        faces = torch.as_tensor(np.random.default_rng(1).integers(0, 40, (100, 3)),
+                                dtype=torch.int32, device=card)
+        valid = torch.ones(100, dtype=torch.bool, device=card)
+        valid[:7] = False
+        if case == "behind_camera":
+            clip[0, faces[60:, 0].long(), 3] = -0.5
+            valid = valid & (clip[0, faces.long(), 3] > 0).all(dim=1)  # ids that must not win
+    before = rasterize_tiled.rasterize_tiled.launches
+    mask = None if case == "behind_camera" else valid
+    got = rasterize_tiled.rasterize_tiled(clip, faces, h, w, face_valid=mask)
+    assert rasterize_tiled.rasterize_tiled.launches == before + 1
+    want = rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w, face_valid=mask)
+    agree = got[..., 3] == want[..., 3]
+    assert agree.float().mean().item() > 0.995
+    torch.testing.assert_close(got[agree], want[agree], rtol=1e-4, atol=1e-4)
+    assert (want[..., 3] > 0).float().mean().item() > 0.001
+    invalid_ids = (~valid).nonzero()[:, 0] + 1
+    assert not torch.isin(got[..., 3], invalid_ids.float()).any()  # invalid faces never win
+
+
+def test_foundationpose_f32_nets_on_the_card(card):
+    """use_bf16_models=False runs the nets, and the attention kernel, in f32."""
+    cfg = FoundationPoseConfig(use_bf16_models=False)
+    house = procedural.textured_house(name="house")
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], np.float32)
+    gt = synthetic.default_pose(0.6)
+    rgb, depth, mask = synthetic.render_scene(MeshConstants.from_asset(house, card), gt, K, 480, 640)
+    model = create_foundationpose_model(
+        str(WEIGHTS / "refiner_multi_full.npz"), str(WEIGHTS / "scorer_multi_full.npz"),
+        [house], K, 480, 640, config=cfg)
+    before = attention.mha_packed_qkv.launches
+    pose = model.register(rgb, depth, mask, "house")
+    tracked = model.track(rgb, depth, pose, "house")
+    assert attention.mha_packed_qkv.launches == before + 4
+    assert np.isfinite(pose).all() and np.isfinite(tracked).all()
+    assert np.linalg.norm(pose[:3, 3] - gt[:3, 3]) < 0.1 * house.diameter
 
 
 @pytest.mark.parametrize("name,crop", [("cube", 32), ("house", 48), ("sphere", 160)])
