@@ -43,7 +43,7 @@ F32_FLOPS = 67e12  # CUDA-core f32, no tensor cores
 # output by up to 2 ulps, so: 4 ulps at the typical size plus 2 ulps of the
 # value itself (2**-6 relative at the bottom of a binade).
 ATTN_ATOL, ATTN_RTOL = 2.0**-9, 2.0**-6
-# f32 attention (no rounding between the steps): f32 sums of up to 1024
+# f32 attention (no rounding between the steps): f32 sums of up to 1500
 # terms in another order than cuBLAS's
 ATTN_F32_TOL = 1e-5
 RASTER_AGREE, RASTER_TOL = 0.995, 1e-4  # tests/test_rasterize_pallas.py:27-30
@@ -61,6 +61,26 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_ms_queued(torch, fn, iters: int) -> float:
+    """Mean device time of fn() alone: the launches are enqueued behind a few
+    milliseconds of matrix products, so the host's time to make each launch
+    (which bounds cuda_ms for a kernel of a few microseconds) is not in it."""
+    if not hasattr(cuda_ms_queued, "blocker"):
+        cuda_ms_queued.blocker = torch.zeros((8192, 8192), dtype=torch.bfloat16, device="cuda")
+    a = cuda_ms_queued.blocker
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    for _ in range(4):
+        torch.mm(a, a)
     start.record()
     for _ in range(iters):
         fn()
@@ -133,26 +153,35 @@ def attention_row(torch, F, name, run, plain, q, k, v, out, dtype):
     tensors; the bound counts q, k, v and the output once and 4 T^2 hd
     operations per (batch, head)."""
     b, h, t, hd = q.shape
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, scale=1 / math.sqrt(hd))
+
     k_ms = cuda_ms(torch, run, 20)
     p_ms = cuda_ms(torch, plain, 3)
-    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=1 / math.sqrt(hd)), 20)
+    l_ms = cuda_ms(torch, sdpa, 20)
+    # the same without the host's launch time, which is most of a small shape's
+    k_dev, l_dev = cuda_ms_queued(torch, run, 20), cuda_ms_queued(torch, sdpa, 20)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     b_ms, b_by = bound(4 * nbytes(out), 4.0 * b * h * t * t * hd, peak)
     log(f"{name} {str(dtype)[6:]} (B={b}, H={h}, T={t}, hd={hd}): kernel_ms={k_ms:.4f} "
-        f"plain_ms={p_ms:.4f} library_ms(sdpa)={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        f"plain_ms={p_ms:.4f} library_ms(sdpa)={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+        f"queued behind other work: kernel_ms={k_dev:.4f} sdpa_ms={l_dev:.4f}")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_attention(torch, attention):
-    """K1 at the encoder (252, 400, 3*512) and att_cross (1, 252, 3*512)
-    shapes in bf16, and at the encoder shape in f32; planted faults in the
+    """K1 in bf16 at the encoder (252, 400, 3*512), att_cross (1, 252, 3*512)
+    and Track (1, 400, 3*512) shapes and at (4, 1500, 3*512), more tokens
+    than a block could keep f32 logits for in shared memory, and at the encoder shape in f32; planted faults in the
     plain version must fail the same tolerance against the kernel."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     heads, rows = 4, []
     for b, t, dtype in ((252, 400, torch.bfloat16), (1, 252, torch.bfloat16),
-                        (252, 400, torch.float32)):
+                        (252, 400, torch.float32), (1, 400, torch.bfloat16),
+                        (4, 1500, torch.bfloat16)):
         qkv = torch.randn((b, t, 1536), generator=gen, device="cuda").to(dtype)
         got = attention.mha_packed_qkv(qkv, heads)
         want = attention.mha_packed_qkv_plain(qkv, heads)
@@ -321,6 +350,30 @@ def check_rasterize(torch, np, tproc, transforms, syn, rasterize_tiled, K):
         rows.append(dict(name=name, n=n, err=err, share=share, ms=k_ms, launch_ms=launch_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+def log_ptxas(name: str, text: str, attention) -> None:
+    """ptxas's registers, static shared memory and spills per kernel; for the
+    attention kernels also the dynamic shared memory their launches ask for."""
+    import re
+
+    import torch
+
+    entry, spill = "", ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            extra = ""
+            found = re.search(r"mha_(bf16|f32)_kernelILi(\d+)E(?:Li(\d+)E)?", entry)
+            if found:
+                dtype = torch.bfloat16 if found.group(1) == "bf16" else torch.float32
+                shared = attention.kernel_shared_bytes(int(found.group(2)), dtype,
+                                                       int(found.group(3) or 1))
+                extra = f"; {shared} bytes dynamic smem"
+            log(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}; {spill}{extra}")
 
 
 def add_s(np, pts, est, gt) -> float:
@@ -569,9 +622,7 @@ def main() -> int:
     logs = cuda_build.build(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s for {list(cuda_build.KERNEL_SOURCES)}")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        log_ptxas(name, text, attention)
 
     cfg = FoundationPoseConfig()
     K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], np.float32)
