@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from ``foundationpose_cpp_tpu_torch/csrc``
 (one nvcc per source, all at once), holds each against its plain PyTorch
 version at the main paths' shapes and times both (with the one PyTorch call
-that computes the same function, where there is one). Then it drives the
+that computes the same function, where there is one); the render and raster
+kernels also run on plane coefficients handed in from the plain version,
+where they must agree on every pixel. Then it drives the
 port's paths end to end, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -234,64 +236,61 @@ def check_whole_head(torch, attention):
     return rows
 
 
-def check_render(torch, np, tproc, transforms, icosphere, render, syn, cfg, K):
-    """K2 on the 6016-face sphere at 160x160: parity on 16 views, times at
-    252 (the wrapper, and the kernel's launch alone on the prepass's output)."""
+def check_render(torch, transforms, render, sweep):
+    """K2 at 160x160 on the 6016-face sphere (faces of a few pixels) and the
+    house (a dozen faces of thousands) at 252 views, and on the sphere at one
+    view (Track's shape): parity on up to 16 views, the same on plane
+    coefficients handed in (the scatter and the resolve alone: 0 pixels off),
+    and the times of the wrapper, of the render kernel's launch alone on a
+    filled vertex buffer, and of the wrapper queued behind other work."""
     from foundationpose_cpp_tpu_torch.ops import rasterize as ras
 
-    sphere = tproc.textured_uv_sphere(radius=0.05, n_lat=48, n_lon=64)
-    from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
-
-    mesh = MeshConstants.from_asset(sphere, "cuda")
-    assert int(mesh.face_valid.sum()) == 6016
-    poses = torch.as_tensor(icosphere.make_rotation_grid(), device="cuda")
-    poses[:, :3, 3] = torch.as_tensor(syn.default_pose(0.6)[:3, 3], device="cuda")
-    Kt = torch.as_tensor(K, device="cuda")
-    ch = cw = cfg.crop_window_h
-    tfs = transforms.compute_crop_window_tf(poses, Kt, (ch, cw), cfg.refine_crop_ratio, mesh.diameter)
-    clip_mat = transforms.pose_clip_matrix(
-        poses, transforms.construct_bbox2d(tfs, ch, cw), Kt, 480, 640, cfg.znear, cfg.zfar
-    )
-
-    def args(sl):
-        return (mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.face_valid,
-                mesh.texture, poses[sl], clip_mat[sl], ch, cw, mesh.diameter,
-                cfg.min_depth, cfg.max_depth, cfg.w_ambient, cfg.w_diffuse)
-
-    full = slice(None)
-    got = render.render_views(*args(full))
-    want = render.render_views_plain(*args(slice(0, 16)))
-    torch.cuda.synchronize()
-    diff = (got[:16] - want).abs().amax(dim=-1)
-    bad = (diff > RENDER_TOL).float().mean().item()
-    err = diff.max().item()
-    fg = (want.abs().sum(-1) > 0).float().mean().item()
-    if not (bad < RENDER_BAD_FRAC and fg > 0.1 and torch.isfinite(got).all()):
-        raise AssertionError(f"render kernel disagrees: {bad:.4%} pixels off, fg {fg:.2f}")
-    k_ms = cuda_ms(torch, lambda: render.render_views(*args(full)), 10)
-    p_ms = cuda_ms(torch, lambda: render.render_views_plain(*args(full)), 1, warmup=0)
-    coeffs, bbox, attrs = render.render_prepass(*args(full)[:5], poses, clip_mat, ch, cw)
-    launch_ms = cuda_ms(torch, lambda: render.launch_render(
-        coeffs, bbox, attrs, mesh.faces, mesh.texture, poses, *args(full)[8:]), 10)
-    done = render.face_tile_pairs(bbox) * render.TILE * render.TILE
-    needed = render_tests_needed(torch, transforms, ras, mesh, clip_mat, ch, cw)
-    in_bytes = nbytes(mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces,
-                      mesh.face_valid, mesh.texture, poses, clip_mat)
-    b_ms, b_by = bound(in_bytes + nbytes(got), needed * RENDER_TEST_FLOPS, F32_FLOPS)
-    log(f"render N=252 160x160 6016 faces: pixels_off={bad:.4%} max_abs_err={err:.3e} "
-        f"wrapper_ms={k_ms:.4f} (prepass + kernel) kernel_launch_ms={launch_ms:.4f} "
-        f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {needed} face-pixel tests "
-        f"needed, {done} done by the 32x32-tile design)")
-    return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    rows = []
+    for name, n, crop in sweep.RENDER_CASES[:3]:
+        case = sweep.render_case(name, n, crop)
+        mesh_args, poses, clip_mat, tail = case[:6], case[6], case[7], case[8:]
+        sl = slice(0, min(n, 16))
+        got = render.render_views(*case)
+        want = render.render_views_plain(*mesh_args, poses[sl], clip_mat[sl], *tail)
+        torch.cuda.synchronize()
+        bad, err = sweep.render_disagreement(got[sl], want, RENDER_TOL)
+        fg = (want.abs().sum(-1) > 0).float().mean().item()
+        if not (bad < RENDER_BAD_FRAC and fg > 0.1 and torch.isfinite(got).all()):
+            raise AssertionError(f"render kernel disagrees on {name} N={n}: {bad:.4%} pixels "
+                                 f"off, fg {fg:.2f}")
+        verts = render.vertex_prepass_plain(case[0], case[1], poses, clip_mat)
+        coeffs, bbox, _ = render.render_prepass(*case[:5], poses, clip_mat, crop, crop)
+        launch_args = (verts, case[2], case[3], case[4], case[5], poses, *tail)
+        exact = render.launch_render(*launch_args, coeffs=coeffs)
+        bad_x, err_x = sweep.render_disagreement(exact[sl], want, RENDER_TOL)
+        if bad_x != 0.0:
+            raise AssertionError(f"render kernel on handed-in coefficients: {bad_x:.4%} pixels "
+                                 f"off on {name} N={n}, want none")
+        k_ms = cuda_ms(torch, lambda: render.render_views(*case), 10)
+        launch_ms = cuda_ms(torch, lambda: render.launch_render(*launch_args), 10)
+        q_ms = cuda_ms_queued(torch, lambda: render.render_views(*case), 10)
+        p_ms = cuda_ms(torch, lambda: render.render_views_plain(*case), 1, warmup=0)
+        clip = transforms.transform_points_homogeneous(clip_mat, case[0])
+        done = render.face_pixel_tests(bbox)
+        needed = tests_needed(torch, ras, clip, case[3], case[4], crop, crop)
+        b_ms, b_by = bound(nbytes(*mesh_args, poses, clip_mat, got), needed * RENDER_TEST_FLOPS,
+                           F32_FLOPS)
+        log(f"render {name} N={n} {crop}x{crop} {int(case[4].sum())} faces: pixels_off={bad:.4%} "
+            f"max_abs_err={err:.3e}; on handed-in coefficients pixels_off={bad_x:.4%} "
+            f"max_abs_err={err_x:.3e}; wrapper_ms={k_ms:.4f} (checks + 2 launches) "
+            f"render_kernel_launch_ms={launch_ms:.4f} wrapper_ms_queued={q_ms:.4f} "
+            f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {needed} face-pixel tests "
+            f"needed, {done} done)")
+        rows.append(dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+    return rows
 
 
-def render_tests_needed(torch, transforms, ras, mesh, clip_mat, h: int, w: int) -> int:
+def tests_needed(torch, ras, clip, faces, face_valid, h: int, w: int) -> int:
     """Face-pixel tests the data needs: each face that survives culling
     against the pixel centers inside its own projected bbox."""
-    clip = transforms.transform_points_homogeneous(clip_mat, mesh.vertices)
-    _, valid = ras.edge_coefficients(clip, mesh.faces)
-    valid = valid & mesh.face_valid[None, :]
-    tri = clip[:, mesh.faces.long()]  # (N, F, 3, 4)
+    _, valid = ras.edge_coefficients(clip, faces)
+    valid = valid & face_valid[None, :]
+    tri = clip[:, faces.long()]  # (N, F, 3, 4)
     ndc = tri[..., :2] / tri[..., 3:4]
     size = torch.tensor([w, h], dtype=torch.float32, device=clip.device)
     # pixel i's center is at (2i + 1) / size - 1 in NDC
@@ -301,53 +300,50 @@ def render_tests_needed(torch, transforms, ras, mesh, clip_mat, h: int, w: int) 
     return int(span[valid].sum().item())
 
 
-def check_rasterize(torch, np, tproc, transforms, syn, rasterize_tiled, K):
+def check_rasterize(torch, transforms, rasterize_tiled, render, sweep):
     """K4 against its plain version: N=1 at 480x640 for the house and the
-    6016-face sphere, N=4 at 120x160 for the sphere; share of pixels whose
-    face ids agree, max error where they agree, times of the wrapper (prepass
-    + kernel), the kernel's launch alone and the plain version."""
+    6016-face sphere, N=4 at 120x160 for the sphere, N=2 at a ragged 123x157
+    for the house; share of pixels whose face ids agree and max error where
+    they agree, the same on plane coefficients handed in (100%), and the
+    times of the wrapper (checks + one launch), of the same queued behind
+    other work (the kernel alone, without the host's launch cost) and of the
+    plain version."""
     from foundationpose_cpp_tpu_torch.ops import rasterize as ras
-    from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
 
-    house = MeshConstants.from_asset(tproc.textured_house(name="house"), "cuda")
-    sphere = MeshConstants.from_asset(tproc.textured_uv_sphere(radius=0.05, n_lat=48, n_lon=64), "cuda")
     rows = []
-    for name, mesh, n, h, w in (("house", house, 1, 480, 640), ("sphere", sphere, 1, 480, 640),
-                                ("sphere", sphere, 4, 120, 160)):
-        Kt = torch.as_tensor(K, device="cuda").clone()
-        Kt[:2] *= w / 640.0  # the same field of view at any size
-        poses = np.stack([syn.default_pose(0.6) for _ in range(n)])
-        for i in range(n):
-            poses[i, :3, :3] = syn.euler_xyz_deg([0.0, 25.0 * i, 0.0]) @ poses[i, :3, :3]
-        poses = torch.as_tensor(poses, device="cuda")
-        bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]], device="cuda").expand(n, 4)
-        clip_mat = transforms.pose_clip_matrix(poses, bbox2d, Kt, h, w)
-        clip = transforms.transform_points_homogeneous(clip_mat, mesh.vertices)
-        args = (clip, mesh.faces, h, w)
-        got = rasterize_tiled.rasterize_tiled(*args, face_valid=mesh.face_valid)
-        want = rasterize_tiled.rasterize_tiled_plain(*args, face_valid=mesh.face_valid)
+    for name, n, h, w in sweep.RASTER_CASES:
+        clip, faces, _, _, valid = sweep.raster_case(name, n, h, w)
+        got = rasterize_tiled.rasterize_tiled(clip, faces, h, w, face_valid=valid)
+        want = rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w, face_valid=valid)
+        coeffs, bbox = rasterize_tiled.rasterize_prepass(clip, faces, h, w, valid)
+        exact = rasterize_tiled.launch_rasterize(clip, faces, h, w, valid, coeffs=coeffs)
         torch.cuda.synchronize()
-        agree = got[..., 3] == want[..., 3]
-        share = agree.float().mean().item()
-        err = (got[agree] - want[agree]).abs().max().item()
+        share, err = sweep.raster_agreement(got, want)
+        share_x, err_x = sweep.raster_agreement(exact, want)
         fg = (want[..., 3] > 0).float().mean().item()
-        ok = share > RASTER_AGREE and torch.allclose(got[agree], want[agree], rtol=RASTER_TOL,
-                                                     atol=RASTER_TOL)
         log(f"rasterize_tiled {name} N={n} {h}x{w}: ids agree on {share:.6%} of pixels "
-            f"(foreground {fg:.2%}), max_abs_err where they agree={err:.3e}")
-        if not (ok and fg > 0.005):
+            f"(foreground {fg:.2%}), max_abs_err where they agree={err:.3e}; on handed-in "
+            f"coefficients {share_x:.6%}, {err_x:.3e}")
+        if not (share > RASTER_AGREE and err <= RASTER_TOL and fg > 0.005):
             raise AssertionError(f"rasterize_tiled disagrees on {name} N={n} {h}x{w}")
-        k_ms = cuda_ms(torch, lambda: rasterize_tiled.rasterize_tiled(*args, face_valid=mesh.face_valid), 20)
-        p_ms = cuda_ms(torch, lambda: rasterize_tiled.rasterize_tiled_plain(*args, face_valid=mesh.face_valid), 3)
-        coeffs, bbox = rasterize_tiled.rasterize_prepass(*args, mesh.face_valid)
-        launch_ms = cuda_ms(torch, lambda: rasterize_tiled.launch_rasterize(coeffs, bbox, h, w), 20)
-        needed = render_tests_needed(torch, transforms, ras, mesh, clip_mat, h, w)
-        b_ms, b_by = bound(nbytes(clip, mesh.faces, mesh.face_valid, got), needed * RENDER_TEST_FLOPS,
-                           F32_FLOPS)
-        log(f"rasterize_tiled {name} N={n} {h}x{w}: wrapper_ms={k_ms:.4f} (prepass + kernel) "
-            f"kernel_launch_ms={launch_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
-            f"{needed} face-pixel tests needed)")
-        rows.append(dict(name=name, n=n, err=err, share=share, ms=k_ms, launch_ms=launch_ms,
+        if not (share_x == 1.0 and err_x <= RASTER_TOL):
+            raise AssertionError(f"rasterize_tiled on handed-in coefficients disagrees on "
+                                 f"{name} N={n} {h}x{w}")
+
+        def run():
+            return rasterize_tiled.rasterize_tiled(clip, faces, h, w, face_valid=valid)
+
+        k_ms = cuda_ms(torch, run, 20)
+        q_ms = cuda_ms_queued(torch, run, 20)
+        p_ms = cuda_ms(torch, lambda: rasterize_tiled.rasterize_tiled_plain(
+            clip, faces, h, w, face_valid=valid), 3)
+        done = render.face_pixel_tests(bbox)
+        needed = tests_needed(torch, ras, clip, faces, valid, h, w)
+        b_ms, b_by = bound(nbytes(clip, faces, valid, got), needed * RENDER_TEST_FLOPS, F32_FLOPS)
+        log(f"rasterize_tiled {name} N={n} {h}x{w}: wrapper_ms={k_ms:.4f} (checks + 1 launch) "
+            f"kernel_ms_queued={q_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
+            f"{needed} face-pixel tests needed, {done} done)")
+        rows.append(dict(name=name, n=n, err=err, share=share, ms=k_ms, queued_ms=q_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -403,9 +399,13 @@ def surface_points(np, asset, n=2000, seed=0):
 
 
 def stage_breakdown(torch, model, rgb, depth, mask) -> None:
-    """Device time of each Register stage at 252 hypotheses, by CUDA events."""
+    """Device time of each Register stage at 252 hypotheses, by CUDA events,
+    and within render_and_transform the shares of the crop and clip matrices,
+    of the render kernel and of the two crop warps with the threshold."""
+    from foundationpose_cpp_tpu_torch.geometry import transforms
+    from foundationpose_cpp_tpu_torch.ops import pointcloud, warp
     from foundationpose_cpp_tpu_torch.pipeline import foundationpose as fpp
-    from foundationpose_cpp_tpu_torch.pipeline.renderer import render_and_transform
+    from foundationpose_cpp_tpu_torch.pipeline.renderer import render_and_transform, render_branch
 
     cfg, K, mesh = model._cfg, model._K, model._meshes["house"]
     rgb_t, depth_t, mask_t = (model._upload(a) for a in (rgb, depth, mask))
@@ -418,7 +418,29 @@ def stage_breakdown(torch, model, rgb, depth, mask) -> None:
         r_in, t_in = render_and_transform(mesh, poses, rgb_t, xyz_map, K, cfg.refine_crop_ratio, cfg)
         times["refiner"] = cuda_ms(torch, lambda: model._refiner(r_in, t_in), 5)
         times["scorer"] = cuda_ms(torch, lambda: model._scorer(r_in, t_in), 5)
+
+        ch, cw = cfg.crop_window_h, cfg.crop_window_w
+
+        def matrices():
+            tfs = transforms.compute_crop_window_tf(poses, K, (ch, cw), cfg.refine_crop_ratio,
+                                                    mesh.diameter)
+            bbox2d = transforms.construct_bbox2d(tfs, ch, cw)
+            return tfs, transforms.pose_clip_matrix(poses, bbox2d, K, *rgb_t.shape[:2],
+                                                    cfg.znear, cfg.zfar)
+
+        def observed(tfs):
+            xyz = warp.warp_crop_nearest_f32(xyz_map, tfs, ch, cw)
+            xyz = pointcloud.threshold_and_downscale_pointcloud(
+                xyz, poses, mesh.diameter / 2.0, cfg.min_depth, cfg.max_depth)
+            return pointcloud.concat_channels(warp.warp_crop_linear_u8(rgb_t, tfs, ch, cw), xyz)
+
+        tfs, clip_mat = matrices()
+        inside = {"crop_and_clip_matrices": cuda_ms(torch, matrices, 5),
+                  "render_views": cuda_ms(torch, lambda: render_branch(
+                      mesh, poses, clip_mat, ch, cw, cfg), 5),
+                  "warps_and_threshold": cuda_ms(torch, lambda: observed(tfs), 5)}
     log("stages_252_ms: " + " ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    log("render_and_transform_252_ms: " + " ".join(f"{k}={v:.3f}" for k, v in inside.items()))
 
 
 def drift_poses(np, syn, n=6):
@@ -602,10 +624,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         import foundationpose_cpp_tpu_torch as fp
-        from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
-        from foundationpose_cpp_tpu_torch.geometry import icosphere, transforms
+        from foundationpose_cpp_tpu_torch.geometry import transforms
         from foundationpose_cpp_tpu_torch.meshio import procedural as tproc
         from foundationpose_cpp_tpu_torch.ops import attention, cuda_build, rasterize_tiled, render
+        from foundationpose_cpp_tpu_torch.tools import raster_region_sweep as sweep
         from foundationpose_cpp_tpu_torch.utils import synthetic as syn
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script: {exc}", file=sys.stderr)
@@ -623,13 +645,14 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {list(cuda_build.KERNEL_SOURCES)}")
     for name, text in logs.items():
         log_ptxas(name, text, attention)
+    log(f"  render kernel: {render.kernel_config()}")
+    log(f"  rasterize kernel: {rasterize_tiled.kernel_config()}")
 
-    cfg = FoundationPoseConfig()
     K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], np.float32)
     attn_rows = check_attention(torch, attention)
     head_rows = check_whole_head(torch, attention)
-    render_row = check_render(torch, np, tproc, transforms, icosphere, render, syn, cfg, K)
-    raster_rows = check_rasterize(torch, np, tproc, transforms, syn, rasterize_tiled, K)
+    render_rows = check_render(torch, transforms, render, sweep)
+    raster_rows = check_rasterize(torch, transforms, rasterize_tiled, render, sweep)
     launches = run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled, K)
     counted = (attention.mha_packed_qkv, attention.mha_whole_head, render.render_views,
                rasterize_tiled.rasterize_tiled)
@@ -649,8 +672,8 @@ def main() -> int:
         dict(name="render_views", route="cuda",
              source="foundationpose_cpp_tpu_torch/csrc/render.cu",
              replaces="foundationpose_cpp_tpu/ops/render_fused.py:502",
-             launches=launches["render_launches"], max_abs_err=render_row["err"],
-             **row(dict(render_row, library_ms=None))),
+             launches=launches["render_launches"], max_abs_err=max(r["err"] for r in render_rows),
+             **row(dict(render_rows[0], library_ms=None))),
         dict(name="mha_whole_head", route="cuda",
              source="foundationpose_cpp_tpu_torch/csrc/attention.cu",
              replaces="foundationpose_cpp_tpu/ops/attention_pallas.py:41",

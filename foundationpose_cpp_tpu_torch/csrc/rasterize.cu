@@ -4,21 +4,15 @@
 // `rasterize_tpu` in foundationpose_cpp_tpu/ops/rasterize_pallas.py, and the
 // XLA pass after it that resolves the winner's id and barycentrics.
 // Plain version: ops/rasterize.py `rasterize` (named rasterize_tiled_plain
-// in ops/rasterize_tiled.py).
+// in ops/rasterize_tiled.py); rasterize_scatter_plain there walks this
+// kernel's algorithm in PyTorch.
 //
 // What it computes, per view n and pixel (x, y) in raster rows (no flip):
 // the nearest face whose edge functions at the pixel center all share a sign
 // (and do not sum to 0) with z/w in [-1, 1], the lowest face id on equal z/w,
 // and writes (b0, b1, z/w, id + 1) with b0, b1 = a0 / sum, a1 / sum clamped
-// to [0, 1]; background pixels are exactly zero. Faces behind the camera or
-// invalid (padding rows) have an empty bbox and are never staged. Every edge,
-// z and w plane and the division use the round-to-nearest intrinsics in the
-// plain version's evaluation order, so FMA contraction cannot move a pixel
-// across an edge and the ids match the plain version exactly.
-//
-// The per-(view, face) inputs come from a prepass in PyTorch
-// (ops/rasterize_tiled.py): the 15 plane coefficients and the conservative
-// pixel bbox that the render kernel (csrc/render.cu) uses too.
+// to [0, 1]; background pixels are exactly zero. Faces with a vertex at
+// w <= 0, a degenerate edge system or a false face_valid never win.
 //
 // What bounds it on the H100: at one 480x640 view the output (16 bytes a
 // pixel, 4.9 MB) takes about 1.5 us at 3.35 TB/s, and the tests the data
@@ -26,58 +20,103 @@
 // 20 f32 operations each) less at 67 TFLOP/s: bytes-bound, and at N = 1 far
 // below a launch's own cost.
 //
-// What the design does about it: one block per (view, 32x32 tile), so a
-// 480x640 frame is 300 blocks and any h, w go through (partial tiles are
-// masked at the store). The block runs the nearest-face pass that the
-// render kernel runs (raster_tile.cuh: faces staged through shared memory
-// after a bbox test against the tile, 4 pixels a thread). The winner's edge
-// values stay in registers, so its barycentrics need no second pass.
+// What the design does about it: it takes the clip coordinates as they are
+// and builds every face's plane coefficients and pixel bbox itself, so the
+// wrapper is one launch. A block owns one region of one view (a 480x640
+// frame is 80 blocks of 64x64; any h, w go through, a ragged region neither
+// tests nor stores past the image) and scatters the view's faces into a
+// depth buffer of 64-bit keys in shared memory (raster_tile.cuh: each face
+// walks the pixel centers of its own bbox; small faces one to a thread, large
+// ones by the whole block). The resolve decodes each pixel's winner,
+// re-evaluates its edge values for the barycentrics and stores one float4.
+//
+// -D switches, for tools/raster_region_sweep.py: RASTER_REGION_W and
+// RASTER_REGION_H (the region), and those of raster_tile.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "raster_tile.cuh"
 
+#ifndef RASTER_REGION_W
+#define RASTER_REGION_W 64
+#endif
+#ifndef RASTER_REGION_H
+#define RASTER_REGION_H 64
+#endif
+
 namespace {
 
 using raster_tile::clamp01;
 using raster_tile::NTHREAD;
-using raster_tile::ROWS;
-using raster_tile::TILE;
+
+constexpr int RW = RASTER_REGION_W;
+constexpr int RH = RASTER_REGION_H;
+using Shared = raster_tile::Shared<RW, RH>;
 
 __global__ void __launch_bounds__(NTHREAD)
-rasterize_kernel(const float* __restrict__ coeffs, const int4* __restrict__ bbox,
-                 float4* __restrict__ out, int F, int H, int W) {
+rasterize_kernel(const float4* __restrict__ clip, const int* __restrict__ faces,
+                 const unsigned char* __restrict__ face_valid,
+                 const float* __restrict__ coeffs, float4* __restrict__ out, int V, int F, int H,
+                 int W) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  Shared& sh = *reinterpret_cast<Shared*>(shared_raw);
   const int n = blockIdx.z;
-  const int ty0 = blockIdx.y * TILE;
-  const raster_tile::Winners win = raster_tile::nearest_faces(coeffs, bbox, n, F, H, W);
-  const int x = win.x;
-  const int ly = win.ly;
+  const int rx0 = blockIdx.x * RW, ry0 = blockIdx.y * RH;
+  const raster_tile::View view{clip + (size_t)n * V, 1, faces, face_valid,
+                               coeffs == nullptr ? nullptr : coeffs + (size_t)n * F * 15,
+                               F, H, W};
+  raster_tile::scatter_faces<RW, RH>(sh, view, rx0, ry0);
 
-  if (x >= W) return;
-#pragma unroll
-  for (int k = 0; k < ROWS; ++k) {
-    const int y = ty0 + ly + k * (NTHREAD / TILE);
-    if (y >= H) continue;
+#ifndef RASTER_ABLATE_NORESOLVE
+  for (int p = threadIdx.x; p < RW * RH; p += NTHREAD) {
+    const int lx = p % RW, ly = p / RW;
+    const int x = rx0 + lx, y = ry0 + ly;
+    if (x >= W || y >= H) continue;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (win.best_id[k] >= 0) {
-      const float iw = __fdiv_rn(1.0f, __fadd_rn(__fadd_rn(win.a0[k], win.a1[k]), win.a2[k]));
-      v.x = clamp01(__fmul_rn(win.a0[k], iw));
-      v.y = clamp01(__fmul_rn(win.a1[k], iw));
-      v.z = fminf(fmaxf(win.best_zw[k], -1.0f), 1.0f);
-      v.w = (float)(win.best_id[k] + 1);
+    const long long key = sh.keys[p];
+    if (key != raster_tile::EMPTY_KEY) {
+      const int fid = raster_tile::key_face(key);
+      const raster_tile::Corners k = raster_tile::load_corners(view, fid);
+      float a[3];
+      raster_tile::winner_edge_values(view, fid, k, sh.fx[lx], sh.fy[ly], a);
+      const float iw = __fdiv_rn(1.0f, __fadd_rn(__fadd_rn(a[0], a[1]), a[2]));
+      v.x = clamp01(__fmul_rn(a[0], iw));
+      v.y = clamp01(__fmul_rn(a[1], iw));
+      v.z = raster_tile::key_depth(key);  // in [-1, 1] by the coverage rule
+      v.w = (float)(fid + 1);
     }
     out[((size_t)n * H + y) * W + x] = v;
   }
+#endif
 }
 
 }  // namespace
 
-extern "C" int fp_rasterize(const void* coeffs, const void* bbox, void* out, int N, int F,
-                            int H, int W, void* stream) {
-  dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, N);
-  rasterize_kernel<<<grid, NTHREAD, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(coeffs), static_cast<const int4*>(bbox),
-      static_cast<float4*>(out), F, H, W);
+// clip (N, V, 4) f32, faces (F, 3) int32, face_valid (F,) bytes or null,
+// out (N, H, W, 4) f32. coeffs is null, or (N, F, 15) plane coefficients
+// that take the place of the ones the kernel builds (a check of the scatter
+// and the resolve alone).
+extern "C" int fp_rasterize(const void* clip, const void* faces, const void* face_valid,
+                            const void* coeffs, void* out, int N, int V, int F, int H, int W,
+                            void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      rasterize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Shared));
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + RW - 1) / RW, (H + RH - 1) / RH, N);
+  rasterize_kernel<<<grid, NTHREAD, sizeof(Shared), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(clip), static_cast<const int*>(faces),
+      static_cast<const unsigned char*>(face_valid), static_cast<const float*>(coeffs),
+      static_cast<float4*>(out), V, F, H, W);
   return (int)cudaGetLastError();
+}
+
+// (region_w, region_h, threads, small_face, shared bytes a block) of this
+// build.
+extern "C" void fp_rasterize_config(int* out) {
+  out[0] = RW;
+  out[1] = RH;
+  out[2] = NTHREAD;
+  out[3] = raster_tile::SMALL_FACE;
+  out[4] = (int)sizeof(Shared);
 }

@@ -1,5 +1,5 @@
-"""The render branch for N views: raster, attributes, texture, shade, flip,
-xyz threshold -- one CUDA kernel on the card.
+"""The render branch for N views: vertex transform, raster, attributes,
+texture, shade, flip, xyz threshold -- two CUDA kernels on the card.
 
 Replaces the Pallas kernel ``_fused_kernel`` / ``render_views_fused`` of
 ``foundationpose_cpp_tpu/ops/render_fused.py`` with ``csrc/render.cu``. What
@@ -8,20 +8,23 @@ it computes is the JAX package's exact unfused ``render_branch``
 ``render_views_plain`` composes from ``ops/rasterize.py``; the wrapper runs
 that plain version for CPU tensors only. The TPU kernel's scheduling choices
 (Morton-ordered chunks, one-hot MXU extraction, packed depth keys, corner or
-texel-patch texturing) are not carried over.
+texel-patch texturing) are not carried over: the CUDA kernel scatters faces
+into a shared-memory depth buffer of 64-bit keys and builds every per-face
+quantity itself (``csrc/raster_tile.cuh``). ``render_prepass`` and
+``face_pixel_bbox`` are the plain versions of what it builds; nothing on the
+card's path calls them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from foundationpose_cpp_tpu_torch.geometry import transforms
 from foundationpose_cpp_tpu_torch.ops import cuda_build, pointcloud
 from foundationpose_cpp_tpu_torch.ops import rasterize as ras
-
-TILE = 32  # the kernel's pixel tile (csrc/render.cu)
 
 
 def vertex_attributes(
@@ -44,11 +47,13 @@ def vertex_attributes(
 def render_views_plain(
     vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
     h: int, w: int, diameter: float, min_depth: float, max_depth: float,
-    w_ambient: float, w_diffuse: float,
+    w_ambient: float, w_diffuse: float, rasterizer=ras.rasterize,
 ) -> torch.Tensor:
-    """The plain PyTorch version: the unfused render chain, any device."""
+    """The plain PyTorch version: the unfused render chain, any device.
+    ``rasterizer`` is ``ops.rasterize.rasterize`` or a function with its
+    signature and contract (``rasterize_scatter_plain``)."""
     clip = transforms.transform_points_homogeneous(clip_mat, vertices)
-    rast = ras.rasterize(clip, faces, h, w, face_valid=face_valid)
+    rast = rasterizer(clip, faces, h, w, face_valid=face_valid)
     attrs = vertex_attributes(poses, vertices, normals, texcoords)
     interp = ras.interpolate_attributes(attrs, rast, faces)
     color = ras.texture_bilinear_wrap(texture, interp[..., 4:6])
@@ -61,16 +66,22 @@ def render_views_plain(
     return pointcloud.concat_channels(color, xyz)
 
 
+BBOX_MARGIN = 0.0625  # pixels; see face_pixel_bbox
+
+
 def face_pixel_bbox(
     clip: torch.Tensor, faces: torch.Tensor, valid: torch.Tensor, h: int, w: int
 ) -> torch.Tensor:
     """(N, F, 4) int32 inclusive pixel ranges (x0, x1, y0, y1) in raster rows.
 
-    Conservative: the projected corners' NDC bbox mapped to pixel-center
-    indices, widened by one pixel each way and clamped to the image; empty
-    (x0 > x1) for culled faces. Every pixel a face covers lies inside,
-    since with all w > 0 the covered pixel centers lie in the projected
-    triangle.
+    Conservative: the pixel centers inside the projected corners' NDC bbox
+    widened by BBOX_MARGIN pixels each way, clamped to the image; empty
+    (x0 > x1 or y0 > y1) for culled faces and faces that hold no pixel
+    center. With all w > 0 the pixel centers a face covers lie in the
+    projected triangle, hence in the corners' bbox; the margin is hundreds
+    of times the rounding error of the bbox and of the edge functions at
+    image sizes up to thousands of pixels, and costs a sixteenth of a
+    column and a row a side.
     """
     tri = clip[:, faces.long()]  # (N, F, 3, 4)
     wv = torch.where(valid[..., None], tri[..., 3], torch.ones_like(tri[..., 3]))
@@ -79,8 +90,8 @@ def face_pixel_bbox(
     hi = ndc.amax(dim=2)
     size = torch.tensor([w, h], dtype=torch.float32, device=clip.device)
     # pixel-center index of an NDC coordinate u: ((u + 1) * size - 1) / 2
-    p_lo = torch.floor(((lo.clamp(-2.0, 2.0) + 1.0) * size - 1.0) / 2.0) - 1.0
-    p_hi = torch.ceil(((hi.clamp(-2.0, 2.0) + 1.0) * size - 1.0) / 2.0) + 1.0
+    p_lo = torch.ceil(((lo.clamp(-2.0, 2.0) + 1.0) * size - 1.0) / 2.0 - BBOX_MARGIN)
+    p_hi = torch.floor(((hi.clamp(-2.0, 2.0) + 1.0) * size - 1.0) / 2.0 + BBOX_MARGIN)
     p_lo = torch.maximum(p_lo, torch.zeros_like(p_lo))
     p_hi = torch.minimum(p_hi, size - 1.0)
     box = torch.stack([p_lo[..., 0], p_hi[..., 0], p_lo[..., 1], p_hi[..., 1]], dim=-1)
@@ -91,8 +102,9 @@ def face_pixel_bbox(
 
 def render_prepass(vertices, normals, texcoords, faces, face_valid, poses, clip_mat,
                    h: int, w: int):
-    """The kernel's inputs, computed with plain tensor ops: (N, F, 15) plane
-    coefficients, (N, F, 4) pixel bboxes, (N, V, 6) vertex attributes."""
+    """What the kernel builds per (view, face) and (view, vertex), computed
+    with plain tensor ops: (N, F, 15) plane coefficients, (N, F, 4) pixel
+    bboxes, (N, V, 6) vertex attributes."""
     clip = transforms.transform_points_homogeneous(clip_mat, vertices)
     coeffs, valid = ras.edge_coefficients(clip, faces)
     valid = valid & face_valid[None, :]
@@ -102,14 +114,76 @@ def render_prepass(vertices, normals, texcoords, faces, face_valid, poses, clip_
     return coeffs.reshape(n, f, 15).contiguous(), bbox, attrs.contiguous()
 
 
-def face_tile_pairs(bbox: torch.Tensor) -> int:
-    """How many (face, tile) pairs the kernel stages: each costs one
-    coverage-and-depth test for each of the tile's TILE*TILE pixels."""
+def face_pixel_tests(bbox: torch.Tensor) -> int:
+    """How many face-pixel tests the kernel does: each face that survives
+    culling is tested at every pixel center of its bbox, once (the regions
+    partition the image)."""
     x0, x1, y0, y1 = bbox.long().unbind(-1)
-    live = x0 <= x1
-    nx = torch.where(live, x1 // TILE - x0 // TILE + 1, torch.zeros_like(x0))
-    ny = torch.where(live, y1 // TILE - y0 // TILE + 1, torch.zeros_like(y0))
-    return int((nx * ny).sum())
+    return int(((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)).sum())
+
+
+def vertex_prepass_plain(vertices, normals, poses, clip_mat) -> torch.Tensor:
+    """(N, V, 8) per-view vertex data with plain tensor ops, as the kernel's
+    first launch writes it: clip coordinates, camera-frame xyz, Lambert
+    term."""
+    return torch.cat(
+        [
+            transforms.transform_points_homogeneous(clip_mat, vertices),
+            transforms.transform_points(poses, vertices),
+            transforms.diffuse_intensity(poses, normals)[..., None],
+        ],
+        dim=-1,
+    ).contiguous()
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the entry point's signature on a build of csrc/render.cu."""
+    lib.fp_render_views.restype = ctypes.c_int
+    lib.fp_render_views.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float] * 5
+        + [ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.fp_render_config.restype = None
+    lib.fp_render_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built on first use, its signature set once."""
+    return bind(cuda_build.load("render"))
+
+
+def kernel_config() -> dict:
+    """The regions (of a launch with many views, and of one with fewer blocks
+    than ``few_blocks``), block size, small-face threshold and shared memory
+    of the loaded build of csrc/render.cu."""
+    cfg = (ctypes.c_int * 9)()
+    _library().fp_render_config(cfg)
+    return dict(zip(("region_w", "region_h", "threads", "small_face", "shared_bytes",
+                     "few_region_w", "few_region_h", "few_shared_bytes", "few_blocks"), cfg))
+
+
+def _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses) -> None:
+    """Raise on what the kernel does not take."""
+    dev = poses.device
+    v = texcoords.shape[0]
+    for name, t, shape in (("vertices", vertices, (v, 3)), ("normals", normals, (v, 3)),
+                           ("texcoords", texcoords, (v, 2)), ("texture", texture, None),
+                           ("poses", poses, (poses.shape[0], 4, 4))):
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"render kernel: {name} must be f32 on {dev}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"render kernel: {name} must be {shape}, got {tuple(t.shape)}")
+    if faces.dtype != torch.int32 or faces.device != dev or faces.dim() != 2 or faces.shape[1] != 3:
+        raise ValueError("render kernel: faces must be (F, 3) int32 on the same device")
+    if (face_valid.dtype != torch.bool or face_valid.device != dev
+            or face_valid.shape != faces.shape[:1]):
+        raise ValueError("render kernel: face_valid must be (F,) bool on the same device")
+    if texture.dim() != 3 or texture.shape[-1] != 3:
+        raise ValueError(f"render kernel: texture must be (Th, Tw, 3), got {tuple(texture.shape)}")
 
 
 def render_views(
@@ -121,8 +195,9 @@ def render_views(
 
     vertices/normals (V, 3), texcoords (V, 2), faces (F, 3) int32,
     face_valid (F,) bool, texture (Th, Tw, 3), poses/clip_mat (N, 4, 4).
-    CPU tensors go through the plain version; CUDA tensors through the
-    kernel, which raises on what it does not take.
+    CPU tensors go through the plain version. CUDA tensors go through the
+    kernel (these checks, two allocations and its two launches, no other
+    tensor op), which raises on what it does not take.
     """
     args = (vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat)
     if poses.device.type == "cpu":
@@ -130,20 +205,16 @@ def render_views(
                                   w_ambient, w_diffuse)
     if poses.device.type != "cuda":
         raise ValueError(f"unsupported device {poses.device}")
-    for name, t in zip(("vertices", "normals", "texcoords", "texture", "poses", "clip_mat"),
-                       (vertices, normals, texcoords, texture, poses, clip_mat)):
-        if t.device != poses.device or t.dtype != torch.float32:
-            raise ValueError(f"render kernel: {name} must be f32 on {poses.device}")
-    if faces.dtype != torch.int32 or faces.device != poses.device:
-        raise ValueError("render kernel: faces must be int32 on the same device")
-    if texture.dim() != 3 or texture.shape[-1] != 3:
-        raise ValueError(f"render kernel: texture must be (Th, Tw, 3), got {tuple(texture.shape)}")
+    _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses)
+    if (clip_mat.device != poses.device or clip_mat.dtype != torch.float32
+            or clip_mat.shape != poses.shape):
+        raise ValueError(f"render kernel: clip_mat must be f32 {tuple(poses.shape)} on {poses.device}")
     n = poses.shape[0]
     if not (1 <= n <= 65535 and h >= 1 and w >= 1):
         raise ValueError(f"render kernel: bad shape n={n} h={h} w={w}")
-    coeffs, bbox, attrs = render_prepass(*args[:5], poses, clip_mat, h, w)
-    out = launch_render(coeffs, bbox, attrs, faces, texture, poses, h, w, diameter,
-                        min_depth, max_depth, w_ambient, w_diffuse)
+    verts = torch.empty((n, vertices.shape[0], 8), dtype=torch.float32, device=poses.device)
+    out = _launch(vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
+                  verts, None, h, w, diameter, min_depth, max_depth, w_ambient, w_diffuse)
     render_views.launches += 1
     return out
 
@@ -152,30 +223,46 @@ render_views.launches = 0
 
 
 def launch_render(
-    coeffs, bbox, attrs, faces, texture, poses, h: int, w: int, diameter: float,
+    verts, texcoords, faces, face_valid, texture, poses, h: int, w: int, diameter: float,
     min_depth: float, max_depth: float, w_ambient: float, w_diffuse: float,
+    coeffs: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Launch csrc/render.cu on the prepass's outputs (``render_prepass``)
-    and return its (N, h, w, 6) image. ``render_views`` checks the inputs
-    and counts its launches; this is the launch alone."""
-    n = poses.shape[0]
-    faces_c = faces.contiguous()
-    tex = texture.contiguous()
-    trans = poses[:, :3, 3].contiguous()
+    """The kernel's second launch alone, on an (N, V, 8) vertex buffer that
+    the caller filled (``vertex_prepass_plain``), for timing and checks:
+    ``render_views`` is the entry point and counts its launches. With
+    ``coeffs`` (N, F, 15), as ``render_prepass`` gives them, the kernel reads
+    these plane coefficients and builds none: the scatter and the resolve
+    alone, which must agree with the plain version exactly."""
+    _check_mesh(None, None, texcoords, faces, face_valid, texture, poses)
+    n, v = poses.shape[0], texcoords.shape[0]
+    for name, t, shape in (("verts", verts, (n, v, 8)), ("coeffs", coeffs, (n, faces.shape[0], 15))):
+        if t is not None and (t.device != poses.device or t.dtype != torch.float32
+                              or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"render kernel: {name} must be contiguous f32 {shape} on {poses.device}")
+    return _launch(None, None, texcoords, faces, face_valid, texture, poses, None, verts, coeffs,
+                   h, w, diameter, min_depth, max_depth, w_ambient, w_diffuse)
+
+
+def _launch(vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat, verts,
+            coeffs, h, w, diameter, min_depth, max_depth, w_ambient, w_diffuse) -> torch.Tensor:
+    """One call into csrc/render.cu: the vertex kernel when ``vertices`` is
+    given, then the render kernel. Returns the (N, h, w, 6) image."""
+    transform = vertices is not None
+    inputs = [t.contiguous() if t is not None else None
+              for t in (vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat)]
+    n, v = poses.shape[0], texcoords.shape[0]
     out = torch.empty((n, h, w, 6), dtype=torch.float32, device=poses.device)
-    lib = cuda_build.load("render")
-    fn = lib.fp_render_views
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 5 + [
-        ctypes.c_void_p
-    ]
+    for name, t in (("texcoords", inputs[2]), ("verts", verts)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"render kernel: {name} must be 16-byte aligned")
+    fn = _library().fp_render_views
     with torch.cuda.device(poses.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            coeffs.data_ptr(), bbox.data_ptr(), attrs.data_ptr(), faces_c.data_ptr(),
-            tex.data_ptr(), trans.data_ptr(), out.data_ptr(),
-            n, coeffs.shape[1], attrs.shape[1], h, w, tex.shape[0], tex.shape[1],
-            diameter / 2.0, min_depth, max_depth, w_ambient, w_diffuse, stream,
+            *(None if t is None else t.data_ptr() for t in inputs), verts.data_ptr(),
+            None if coeffs is None else coeffs.data_ptr(), out.data_ptr(),
+            n, faces.shape[0], v, h, w, texture.shape[0], texture.shape[1],
+            diameter / 2.0, min_depth, max_depth, w_ambient, w_diffuse, int(transform), stream,
         )
     cuda_build.check(err, "render_views")
     return out

@@ -19,6 +19,7 @@ from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
 from foundationpose_cpp_tpu_torch.geometry import transforms
 from foundationpose_cpp_tpu_torch.meshio.mesh_loader import MeshAsset
 from foundationpose_cpp_tpu_torch.ops import pointcloud, render, warp
+from foundationpose_cpp_tpu_torch.utils.device import resolve_device
 
 
 FACE_PAD = 128
@@ -45,7 +46,9 @@ class MeshConstants:
     orient_bounds: torch.Tensor  # (4, 4)
 
     @staticmethod
-    def from_asset(asset: MeshAsset, device="cpu") -> "MeshConstants":
+    def from_asset(asset: MeshAsset, device=None) -> "MeshConstants":
+        """``device`` None means the card (``utils.device.resolve_device``)."""
+        device = resolve_device(device)
         verts = asset.vertices - asset.model_center[None, :]
         uv = np.stack([asset.texcoords[:, 0], 1.0 - asset.texcoords[:, 1]], axis=-1)
         f = asset.faces

@@ -119,26 +119,41 @@ def _random_clip(n, v, seed, card):
     return torch.as_tensor(np.concatenate([xy, z, w], axis=-1), dtype=torch.float32, device=card)
 
 
-def _scene_clip(asset, h, w, card):
+def _scene_clip(asset, h, w, card, n=1):
     mesh = MeshConstants.from_asset(asset, card)
     K = torch.tensor([[600.0 * w / 640, 0, w / 2], [0, 600.0 * h / 480, h / 2], [0, 0, 1]],
                      device=card)
-    pose = torch.as_tensor(synthetic.default_pose(0.5), device=card)[None]
-    bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]], device=card)
-    clip_mat = transforms.pose_clip_matrix(pose, bbox2d, K, h, w)
+    poses = np.stack([synthetic.default_pose(0.5) for _ in range(n)])
+    for i in range(n):
+        poses[i, :3, :3] = synthetic.euler_xyz_deg([0.0, 40.0 * i, 0.0]) @ poses[i, :3, :3]
+    poses = torch.as_tensor(poses, device=card)
+    bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]], device=card).expand(n, 4)
+    clip_mat = transforms.pose_clip_matrix(poses, bbox2d, K, h, w)
     return transforms.transform_points_homogeneous(clip_mat, mesh.vertices), mesh.faces, mesh.face_valid
 
 
 @pytest.mark.parametrize("case", ["house_480x640", "sphere_480x640", "random_n4_120x160",
-                                  "random_37x53", "behind_camera"])
+                                  "random_37x53", "behind_camera", "house_n2_123x157",
+                                  "cube_160x160", "planted_ties", "one_view_behind_camera"])
 def test_rasterize_kernel_matches_plain(card, case):
+    """Large faces (house, cube) and small ones (sphere), N = 1 and more,
+    ragged sizes, faces and a whole view behind the camera, planted copies of
+    faces (equal depth everywhere: the lower id wins). Every case runs a
+    second time on plane coefficients handed in from edge_coefficients, where
+    the scatter and the resolve must agree with the plain version on every
+    pixel."""
+    base_faces = None
     if case == "house_480x640":
         (clip, faces, valid), h, w = _scene_clip(procedural.textured_house(), 480, 640, card), 480, 640
     elif case == "sphere_480x640":
         sphere = procedural.textured_uv_sphere(radius=0.05, n_lat=48, n_lon=64)
         (clip, faces, valid), h, w = _scene_clip(sphere, 480, 640, card), 480, 640
+    elif case == "house_n2_123x157":
+        (clip, faces, valid), h, w = _scene_clip(procedural.textured_house(), 123, 157, card, n=2), 123, 157
+    elif case == "cube_160x160":
+        (clip, faces, valid), h, w = _scene_clip(procedural.textured_cube(size=0.1), 160, 160, card), 160, 160
     else:
-        n = 4 if case == "random_n4_120x160" else 1
+        n = {"random_n4_120x160": 4, "one_view_behind_camera": 3}.get(case, 1)
         h, w = (120, 160) if n == 4 else (37, 53)
         clip = _random_clip(n, 40, 0, card)
         faces = torch.as_tensor(np.random.default_rng(1).integers(0, 40, (100, 3)),
@@ -148,6 +163,12 @@ def test_rasterize_kernel_matches_plain(card, case):
         if case == "behind_camera":
             clip[0, faces[60:, 0].long(), 3] = -0.5
             valid = valid & (clip[0, faces.long(), 3] > 0).all(dim=1)  # ids that must not win
+        if case == "one_view_behind_camera":
+            clip[1, :, 3] = -clip[1, :, 3]
+        if case == "planted_ties":
+            base_faces = faces.shape[0]
+            faces = torch.cat([faces, faces[:50]])
+            valid = torch.cat([valid, valid[:50]])
     before = rasterize_tiled.rasterize_tiled.launches
     mask = None if case == "behind_camera" else valid
     got = rasterize_tiled.rasterize_tiled(clip, faces, h, w, face_valid=mask)
@@ -159,6 +180,53 @@ def test_rasterize_kernel_matches_plain(card, case):
     assert (want[..., 3] > 0).float().mean().item() > 0.001
     invalid_ids = (~valid).nonzero()[:, 0] + 1
     assert not torch.isin(got[..., 3], invalid_ids.float()).any()  # invalid faces never win
+    if base_faces is not None:
+        assert not (got[..., 3] > base_faces).any()  # a copy never beats its original
+    if case == "one_view_behind_camera":
+        assert (got[1] == 0).all() and (got[0, ..., 3] > 0).any() and (got[2, ..., 3] > 0).any()
+    coeffs, _ = rasterize_tiled.rasterize_prepass(clip, faces, h, w, mask)
+    exact = rasterize_tiled.launch_rasterize(clip, faces, h, w, mask, coeffs=coeffs)
+    assert rasterize_tiled.rasterize_tiled.launches == before + 1  # only the wrapper counts
+    assert torch.equal(exact[..., 3], want[..., 3])
+    torch.testing.assert_close(exact, want, rtol=1e-4, atol=1e-4)
+
+
+def test_raster_kernels_reject_what_they_do_not_take(card):
+    clip = _random_clip(1, 12, 0, card)
+    faces = torch.zeros((4, 3), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="clip must be"):
+        rasterize_tiled.rasterize_tiled(clip.half(), faces, 8, 8)
+    with pytest.raises(ValueError, match="clip must be"):
+        rasterize_tiled.rasterize_tiled(clip[..., :3], faces, 8, 8)
+    with pytest.raises(ValueError, match="faces must be"):
+        rasterize_tiled.rasterize_tiled(clip, faces.long(), 8, 8)
+    with pytest.raises(ValueError, match="faces must be"):
+        rasterize_tiled.rasterize_tiled(clip, faces.cpu(), 8, 8)
+    with pytest.raises(ValueError, match="face_valid must be"):
+        rasterize_tiled.rasterize_tiled(clip, faces, 8, 8, face_valid=torch.ones(4, device=card))
+    with pytest.raises(ValueError, match="face_valid must be"):
+        rasterize_tiled.rasterize_tiled(clip, faces, 8, 8,
+                                        face_valid=torch.ones(3, dtype=torch.bool, device=card))
+    with pytest.raises(ValueError, match="bad shape"):
+        rasterize_tiled.rasterize_tiled(clip, faces, 0, 8)
+    with pytest.raises(ValueError, match="coeffs must be"):
+        rasterize_tiled.launch_rasterize(clip, faces, 8, 8, coeffs=torch.zeros((1, 4, 9), device=card))
+    mesh = MeshConstants.from_asset(procedural.textured_cube(size=0.1), card)
+    cfg = FoundationPoseConfig()
+    poses = torch.eye(4, device=card)[None]
+    args = [mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.face_valid,
+            mesh.texture, poses, poses.clone(), 16, 16, mesh.diameter, cfg.min_depth,
+            cfg.max_depth, cfg.w_ambient, cfg.w_diffuse]
+    for index, bad, match in ((3, mesh.faces.long(), "faces must be"),
+                              (5, mesh.texture[..., :2], "texture must be"),
+                              (0, mesh.vertices.double(), "vertices must be"),
+                              (4, mesh.face_valid.float(), "face_valid must be"),
+                              (7, poses[:, :3], "clip_mat must be"),
+                              (1, mesh.normals[:-1], "normals must be")):
+        broken = list(args)
+        broken[index] = bad
+        with pytest.raises(ValueError, match=match):
+            render.render_views(*broken)
 
 
 def test_foundationpose_f32_nets_on_the_card(card):
@@ -179,31 +247,73 @@ def test_foundationpose_f32_nets_on_the_card(card):
     assert np.linalg.norm(pose[:3, 3] - gt[:3, 3]) < 0.1 * house.diameter
 
 
-@pytest.mark.parametrize("name,crop", [("cube", 32), ("house", 48), ("sphere", 160)])
-def test_render_kernel_matches_plain(card, name, crop):
+def _render_args(mesh, ch, cw, n, card, tz=0.45):
     cfg = FoundationPoseConfig()
+    rng = np.random.default_rng(0)
+    q, r = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    q[np.linalg.det(q) < 0, :, 0] *= -1
+    poses = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    poses[:, :3, :3] = q
+    poses[:, :3, 3] = [0.01, -0.005, tz]
+    poses = torch.as_tensor(poses, device=card)
+    K = torch.tensor([[300.0, 0, 64], [0, 300.0, 64], [0, 0, 1]], device=card)
+    tfs = transforms.compute_crop_window_tf(poses, K, (ch, cw), 1.2, mesh.diameter)
+    clip_mat = transforms.pose_clip_matrix(poses, transforms.construct_bbox2d(tfs, ch, cw), K, 128, 128)
+    return (mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.face_valid,
+            mesh.texture, poses, clip_mat, ch, cw, mesh.diameter, cfg.min_depth,
+            cfg.max_depth, cfg.w_ambient, cfg.w_diffuse)
+
+
+@pytest.mark.parametrize("name,ch,cw,n", [("cube", 32, 32, 6), ("house", 48, 48, 6),
+                                          ("sphere", 160, 160, 6), ("cube", 160, 160, 6),
+                                          ("house", 123, 157, 3), ("sphere", 160, 160, 1),
+                                          ("house", 160, 160, 140), ("cube", 200, 176, 40),
+                                          ("planted_ties", 64, 64, 3)])
+def test_render_kernel_matches_plain(card, name, ch, cw, n):
+    """Large faces (cube, house) and small ones (sphere), one view (the
+    32x32 regions of a launch with few blocks) and 140 (whole-crop regions),
+    a ragged crop, a crop of four ragged 160x160 regions, faces planted twice; and on plane coefficients handed in
+    from edge_coefficients, where no pixel may be off."""
     asset = {
         "cube": lambda: procedural.textured_cube(size=0.1),
         "house": lambda: procedural.textured_house(size=0.1),
+        "planted_ties": lambda: procedural.textured_house(size=0.1),
         "sphere": lambda: procedural.textured_uv_sphere(radius=0.05, n_lat=24, n_lon=32),
     }[name]()
     mesh = MeshConstants.from_asset(asset, card)
-    rng = np.random.default_rng(0)
-    q, r = np.linalg.qr(rng.normal(size=(6, 3, 3)))
-    q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
-    q[np.linalg.det(q) < 0, :, 0] *= -1
-    poses = np.tile(np.eye(4, dtype=np.float32), (6, 1, 1))
-    poses[:, :3, :3] = q
-    poses[:, :3, 3] = [0.01, -0.005, 0.45]
-    poses = torch.as_tensor(poses, device=card)
+    args = _render_args(mesh, ch, cw, n, card)
+    if name == "planted_ties":
+        live = int(mesh.face_valid.sum())
+        faces = torch.cat([mesh.faces[:live], mesh.faces[:live]])
+        args = args[:3] + (faces, torch.ones(2 * live, dtype=torch.bool, device=card)) + args[5:]
+    sl = slice(0, min(n, 8))
+    part = args[:6] + (args[6][sl], args[7][sl]) + args[8:]
+    want = render.render_views_plain(*part)
+    assert (want.abs().sum(-1) > 0).float().mean().item() > 0.1
+    verts = render.vertex_prepass_plain(args[0], args[1], part[6], part[7])
+    coeffs, _, _ = render.render_prepass(*part[:5], part[6], part[7], ch, cw)
+    before = render.render_views.launches
+    got = render.render_views(*args)
+    assert render.render_views.launches == before + 1
+    bad = ((got[sl] - want).abs().amax(dim=-1) > 2e-3).float().mean().item()
+    assert bad < 0.01
+    exact = render.launch_render(verts, args[2], args[3], args[4], args[5], part[6], *args[8:],
+                                 coeffs=coeffs)
+    assert render.render_views.launches == before + 1  # only the wrapper counts
+    assert ((exact - want).abs().amax(dim=-1) > 2e-3).sum().item() == 0
+
+
+def test_render_kernel_view_behind_the_camera_is_zero(card):
+    mesh = MeshConstants.from_asset(procedural.textured_cube(size=0.1), card)
+    args = list(_render_args(mesh, 48, 48, 3, card))
+    args[6] = args[6].clone()
+    args[6][1, 2, 3] = -0.45  # the middle view looks away from the cube
     K = torch.tensor([[300.0, 0, 64], [0, 300.0, 64], [0, 0, 1]], device=card)
-    tfs = transforms.compute_crop_window_tf(poses, K, (crop, crop), 1.2, mesh.diameter)
-    clip_mat = transforms.pose_clip_matrix(poses, transforms.construct_bbox2d(tfs, crop, crop), K, 128, 128)
-    args = (mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.face_valid,
-            mesh.texture, poses, clip_mat, crop, crop, mesh.diameter, cfg.min_depth,
-            cfg.max_depth, cfg.w_ambient, cfg.w_diffuse)
+    tfs = transforms.compute_crop_window_tf(args[6], K, (48, 48), 1.2, mesh.diameter)
+    args[7] = transforms.pose_clip_matrix(args[6], transforms.construct_bbox2d(tfs, 48, 48), K, 128, 128)
     got = render.render_views(*args)
     want = render.render_views_plain(*args)
-    bad = ((got - want).abs().amax(dim=-1) > 2e-3).float().mean().item()
-    assert bad < 0.01
-    assert (want.abs().sum(-1) > 0).float().mean().item() > 0.1
+    assert (got[1] == 0).all() and (want[1] == 0).all()
+    assert ((got - want).abs().amax(dim=-1) > 2e-3).float().mean().item() < 0.01
+    assert (got[0].abs().sum(-1) > 0).any() and (got[2].abs().sum(-1) > 0).any()

@@ -66,7 +66,7 @@ def models():
 def test_render_scene_matches_jax(scene):
     pose, rgb, depth, mask = scene
     t_rgb, t_depth, t_mask = tsyn.render_scene(
-        TMesh.from_asset(tproc.textured_cube(size=0.1)), pose, K, H, W, TCFG
+        TMesh.from_asset(tproc.textured_cube(size=0.1), device="cpu"), pose, K, H, W, TCFG
     )
     np.testing.assert_array_equal(tsyn.default_pose(0.5), jsyn.default_pose(0.5))
     assert (t_mask != mask).mean() < 0.01

@@ -7,9 +7,9 @@ than 99.5% of pixels (the TPU kernel breaks depth ties by sorted position,
 the port by the lowest face id) and rtol = atol = 1e-4 where they agree.
 Heights that are not a multiple of 16, which the Pallas kernel refuses, go
 against the JAX XLA rasterizer with the same tolerance. The CUDA kernel's
-staging rule (a face is tested only in tiles its prepass bbox meets) is
-checked by rasterizing with that rule in plain tensor ops: the same raster,
-exactly.
+bbox rule (a face is tested only at the pixel centers inside its bbox, of
+which face_pixel_bbox is the plain version) is checked by rasterizing with
+that rule in plain tensor ops: the same raster, exactly.
 """
 
 import jax.numpy as jnp
@@ -87,7 +87,7 @@ def test_realistic_object_matches_pallas_interpret():
     """A posed sphere through the clip-matrix path, padded faces included
     (the scene of tests/test_rasterize_pallas.py)."""
     sphere = tproc.textured_uv_sphere(radius=0.05, n_lat=8, n_lon=12)
-    mesh = MeshConstants.from_asset(sphere)
+    mesh = MeshConstants.from_asset(sphere, device="cpu")
     K = torch.tensor([[300.0, 0, 64], [0, 300.0, 64], [0, 0, 1]])
     poses = torch.from_numpy(tsyn.default_pose(0.4)[None])
     tfs = ttf.compute_crop_window_tf(poses, K, (32, 128), 1.2, mesh.diameter)
@@ -111,7 +111,7 @@ def test_height_not_a_multiple_of_16(h, w):
 
 def _bbox_staged_raster(clip, faces, valid, h, w):
     """The kernel's rule in plain ops: a face covers a pixel only inside its
-    prepass bbox (tiles the bbox misses never stage it)."""
+    bbox (pixels outside it are never tested against the face)."""
     coeffs, bbox = rt.rasterize_prepass(clip, faces, h, w, valid)
     n, f = bbox.shape[:2]
     fxs, fys = tras.pixel_basis(h, w)
@@ -137,7 +137,7 @@ def test_kernel_staging_rule_gives_the_same_raster(name, h, w):
     asset = {"house": lambda: tproc.textured_house(),
              "sphere": lambda: tproc.textured_uv_sphere(radius=0.05, n_lat=12, n_lon=16),
              "cube": lambda: tproc.textured_cube(size=0.1)}[name]()
-    mesh = MeshConstants.from_asset(asset)
+    mesh = MeshConstants.from_asset(asset, device="cpu")
     K = torch.tensor([[150.0 * w / 160, 0, w / 2], [0, 150.0 * h / 120, h / 2], [0, 0, 1]])
     poses = torch.from_numpy(np.stack([tsyn.default_pose(0.35), tsyn.default_pose(0.25)]))
     poses[1, 0, 3] += 0.05  # partly out of the frame

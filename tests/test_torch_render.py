@@ -50,7 +50,7 @@ def _setup(name):
     jasset = MESHES[name](jproc)
     tasset = MESHES[name](tproc)
     jmesh = jren.MeshConstants.from_asset(jasset)
-    tmesh = tren.MeshConstants.from_asset(tasset)
+    tmesh = tren.MeshConstants.from_asset(tasset, device="cpu")
     poses = _poses()
     jp, jK = jnp.asarray(poses), jnp.asarray(K)
     tfs = jtf.compute_crop_window_tf(jp, jK, (CROP, CROP), 1.2, jmesh.diameter)
@@ -80,9 +80,10 @@ def test_render_branch_matches_jax(name):
 
 @pytest.mark.parametrize("name", sorted(MESHES))
 def test_kernel_bbox_holds_every_covered_pixel(name):
-    """The kernel stages a face for a tile only when its prepass bbox meets
-    the tile; every pixel a face wins in the plain rasterizer must lie in
-    that face's bbox, or the kernel would miss it."""
+    """The kernel tests a face only at the pixel centers of its bbox
+    (face_pixel_bbox is the plain version of the bbox it builds); every
+    pixel a face wins in the plain rasterizer must lie in that face's bbox,
+    or the kernel would miss it."""
     _, tmesh, poses, clipm = _setup(name)
     tp, tc = torch.from_numpy(poses), torch.from_numpy(clipm)
     _, bbox, _ = trender.render_prepass(
@@ -96,11 +97,11 @@ def test_kernel_bbox_holds_every_covered_pixel(name):
     b = bbox[n_idx, fid].long()
     assert len(fid) > 0
     assert ((b[:, 0] <= xs) & (xs <= b[:, 1]) & (b[:, 2] <= ys) & (ys <= b[:, 3])).all()
-    assert trender.face_tile_pairs(bbox) > 0
+    assert trender.face_pixel_tests(bbox) >= len(fid)  # at least one test a covered pixel
 
 
 def test_culled_faces_get_empty_bbox():
-    """Faces behind the camera (w <= 0) and padding faces stage nowhere."""
+    """Faces behind the camera (w <= 0) and padding faces are tested nowhere."""
     _, tmesh, poses, clipm = _setup("cube")
     poses = poses.copy()
     poses[:, 2, 3] = -0.5  # the whole cube behind the camera
@@ -113,7 +114,7 @@ def test_culled_faces_get_empty_bbox():
         torch.from_numpy(poses), clip_mat, CROP, CROP,
     )
     assert (bbox[..., 0] > bbox[..., 1]).all()
-    assert trender.face_tile_pairs(bbox) == 0
+    assert trender.face_pixel_tests(bbox) == 0
     out = tren.render_branch(tmesh, torch.from_numpy(poses), clip_mat, CROP, CROP, CFG)
     assert (out == 0).all()
 
