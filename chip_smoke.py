@@ -14,6 +14,11 @@ it and read just after:
 
 - Register and Track at full width (252 hypotheses, the committed
   ``weights/*_multi_full.npz``, six 480x640 frames made by ``render_scene``);
+- the serving paths on the same frames and weights: Register and Track with
+  a (480, 640) size bucket, on the frame and on a 448x608 crop; the six
+  frames chained through ``make_packed_tracker`` (u16mm, f32, rgb_half);
+  ``AsyncTracker`` fed by a producer thread through the native frame ring;
+  the refiner and scorer inference cores at n = 1, 5, 64, 252;
 - the dataset sequence at full width: the same six frames and the textured
   mesh written in the mustard0 layout, then ``run_dataset`` on them;
 - the dataset sequence with narrow seeded nets (head_dim 16), which routes
@@ -534,7 +539,8 @@ def run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled,
     log(f"register_ms={reg_med:.2f} (first timed {reg_ms:.2f}) register_fps={1e3 / reg_med:.2f} "
         f"track_ms={trk_med:.2f} track_fps={1e3 / trk_med:.2f}")
     return dict(render_launches=counts[0], attention_launches=counts[1],
-                raster_launches=raster_launches)
+                raster_launches=raster_launches, model=model, house=house, frames=frames,
+                gts=gts, pose=pose)
 
 
 def run_dataset_full_width(torch, np, tproc, syn, kernels, K, tmp):
@@ -611,6 +617,250 @@ def run_dataset_narrow(torch, np, syn, kernels, tmp):
     return dict(whole_head_launches=counts[1])
 
 
+def counts_of(kernels) -> tuple:
+    return tuple(k.launches for k in kernels)
+
+
+def run_buckets(torch, np, fp, kernels, K, main):
+    """Register and Track with size_buckets=((480, 640),) on the 480x640
+    frame and on its top-left 448x608 crop (same intrinsics, the house's mask
+    whole inside it): poses against the unbucketed model's, ADD-S on both
+    sizes, one buffer set, (render, attention) launches per call."""
+    house, frames, gts, base = main["house"], main["frames"], main["gts"], main["model"]
+    rgb, depth, mask = frames[0]
+    ch, cw = 448, 608
+    if mask[ch:].any() or mask[:, cw:].any():
+        raise AssertionError(f"the house's mask reaches past the {ch}x{cw} crop")
+    crop = (rgb[:ch, :cw], depth[:ch, :cw], mask[:ch, :cw])
+    model = fp.create_foundationpose_model(
+        str(ROOT / "weights" / "refiner_multi_full.npz"),
+        str(ROOT / "weights" / "scorer_multi_full.npz"),
+        [house], K, 480, 640, config=fp.FoundationPoseConfig(size_buckets=((480, 640),)),
+    )
+    model.register(*crop, "house")  # warm-up: cuDNN plans for the bucket's shapes
+    reset_counts(kernels)
+    got = model.register_with_scores(rgb, depth, mask, "house")
+    per_register = counts_of(kernels)
+    pose_crop = model.register(*crop, "house")
+    track_full = model.track(rgb, depth, got[0], "house")
+    track_crop = model.track(crop[0], crop[1], pose_crop, "house")
+    counts = counts_of(kernels)
+    want = base.register_with_scores(rgb, depth, mask, "house")
+    delta = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    track_delta = float(np.abs(track_full - base.track(rgb, depth, got[0], "house")).max())
+    pts = surface_points(np, house)
+    adds_full, adds_crop = add_s(np, pts, got[0], gts[0]), add_s(np, pts, pose_crop, gts[0])
+    sets = len(model._bucket_buffers)
+    log(f"buckets: 480x640 in (480, 640) vs unbucketed max|d| register (pose, 252 poses, "
+        f"scores)={delta:.3e} track={track_delta:.3e}; ADD-S 480x640={adds_full * 1e3:.2f} mm "
+        f"448x608={adds_crop * 1e3:.2f} mm (limit {house.diameter * 100:.1f} mm); track rot_err "
+        f"480x640={rot_err_deg(np, track_full, gts[0]):.2f} 448x608="
+        f"{rot_err_deg(np, track_crop, gts[0]):.2f} deg; bucket buffer sets={sets}; launches "
+        f"(render, attention) per Register={per_register}, 2 Register + 2 Track={counts}")
+    if delta > 1e-5 or track_delta > 1e-5:
+        raise AssertionError(f"bucketed 480x640 differs from unbucketed by {delta}, {track_delta}")
+    if max(adds_full, adds_crop) >= 0.1 * house.diameter:
+        raise AssertionError(f"bucketed ADD-S {adds_full:.4f} / {adds_crop:.4f} m >= 0.1 x diameter")
+    if sets != 1 or per_register != (2, 3) or counts != (6, 8):
+        raise AssertionError(f"buckets: {sets} buffer sets, launches {per_register} / {counts}, "
+                             f"want 1, (2, 3) / (6, 8)")
+
+
+def run_packed(torch, np, profiling, kernels, main):
+    """The six house frames chained through make_packed_tracker (u16mm, f32,
+    u16mm with rgb_half), the pose left on the card: each pose against
+    track() on the frame the step decodes, the rotation gate, and the
+    per-frame ms of 64 chained steps (host clock, one synchronize at the end)
+    beside track()'s per call."""
+    from foundationpose_cpp_tpu_torch.pipeline.foundationpose import unpack_frame
+
+    model, frames, gts = main["model"], main["frames"], main["gts"]
+    # three windows each, to show the host's spread: track() per call over
+    # the six frames chained, then each format's 64 chained steps
+    track_ms = []
+    for _ in range(3):
+        timer, pose = profiling.StageTimer(), main["pose"]
+        for i in range(24):
+            with timer.stage("track"):
+                pose = model.track(frames[i % 6][0], frames[i % 6][1], pose, "house")
+        track_ms.append(timer.mean_ms("track"))
+
+    def windows(values):
+        return "/".join(f"{v:.3f}" for v in values)
+
+    for fmt, half in (("u16mm", False), ("f32", False), ("u16mm", True)):
+        name = fmt + ("+rgb_half" if half else "")
+        step = model.make_packed_tracker("house", (480, 640), depth_format=fmt, rgb_half=half)
+        host = [model.pack_frame(rgb, depth, fmt, half) for rgb, depth, _ in frames]
+        dev = [torch.from_numpy(p).cuda() for p in host]
+        pose = torch.from_numpy(main["pose"]).cuda()
+        step(dev[0], pose)  # warm-up
+        reset_counts(kernels)
+        chain = []
+        for packed in dev:
+            chain.append(step(packed, pose))
+            pose = chain[-1]
+        counts = counts_of(kernels)
+        poses = [p.cpu().numpy() for p in chain]
+        delta, prev = 0.0, main["pose"]
+        for packed, got in zip(dev, poses):
+            rgb_q, depth_q = (t.cpu().numpy() for t in unpack_frame(packed, (480, 640), fmt, half))
+            delta = max(delta, float(np.abs(got - model.track(rgb_q, depth_q, prev, "house")).max()))
+            prev = got
+        rot = [rot_err_deg(np, p, gt) for p, gt in zip(poses, gts)]
+        times = {"numpy": [], "card": []}
+        for _ in range(3):
+            for src, frames_in in (("numpy", host), ("card", dev)):
+                pose = torch.from_numpy(main["pose"]).cuda()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(64):
+                    pose = step(frames_in[i % len(frames_in)], pose)
+                torch.cuda.synchronize()
+                times[src].append((time.perf_counter() - t0) * 1e3 / 64)
+        if name == "u16mm":
+            # the card's share of a chained step: kernel time per step under
+            # torch.profiler against the unprofiled host time per frame
+            with tempfile.TemporaryDirectory() as tmp, profiling.trace(tmp) as prof:
+                pose = torch.from_numpy(main["pose"]).cuda()
+                for i in range(16):
+                    pose = step(dev[i % len(dev)], pose)
+                torch.cuda.synchronize()
+            kernels_run = [e for e in prof.key_averages()
+                           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+            device_ms = sum(e.self_device_time_total for e in kernels_run) / 16 / 1e3
+            frame_ms = min(times["card"])
+            busy = (f"{device_ms:.3f} ms of kernel time a step in {len(kernels_run)} distinct "
+                    f"kernels, {sum(e.count for e in kernels_run) / 16:.0f} launches a step "
+                    f"({device_ms / frame_ms:.1%} of the fastest window's {frame_ms:.3f} ms "
+                    f"frame)" if kernels_run
+                    else "device time not measured (the profiler saw no device activity)")
+            log(f"packed {name}: {busy}; longest: " + ", ".join(
+                f"{e.key[:48]}={e.self_device_time_total / 16 / 1e3:.3f}" for e in sorted(
+                    kernels_run, key=lambda e: -e.self_device_time_total)[:5]))
+        log(f"packed {name} ({len(host[0])} bytes a frame): max|d| vs track() on the decoded "
+            f"frame={delta:.3e} (limit 1e-5); launches (render, attention)={counts}; rot_err_deg: "
+            + " ".join(f"{r:.2f}" for r in rot)
+            + f"; per frame over 64 chained steps, three windows: {windows(times['numpy'])} ms "
+            f"from numpy (one upload each), {windows(times['card'])} ms from frames already on "
+            f"the card; track() {windows(track_ms)} ms a call")
+        if delta > 1e-5:
+            raise AssertionError(f"packed {name} differs from track() by {delta}")
+        if counts != (len(dev), len(dev)) or max(rot) >= 5.0:
+            raise AssertionError(f"packed {name}: launches {counts}, rotation error {max(rot):.2f}")
+
+
+def run_async(torch, np, profiling, kernels, main):
+    """AsyncTracker over the port's frame ring, run(max_frames=64,
+    pipeline_depth=3), while a producer thread pushes the six house frames in
+    a cycle: a push a millisecond as bench.py's feeder, once with f32 meters
+    (``pack_frame`` quantizes them to millimeters on the producer's thread,
+    as bench.py feeds it) and once with uint16 millimeters, a depth camera's
+    own frames, which pass through; then uint16 millimeters at a 30 fps
+    camera's rate, with the poses read 3 frames late and at once, and at once
+    with the uploader polling the empty ring every 5 ms instead of 0.5."""
+    import threading
+
+    from foundationpose_cpp_tpu_torch.pipeline.async_tracker import AsyncTracker
+
+    model, frames = main["model"], main["frames"]
+    sensor = [(rgb, np.round(depth.astype(np.float64) * 1000).astype(np.uint16))
+              for rgb, depth, _ in frames]
+    camera = "u16 millimeters at 30 frames/s"
+    for name, feed, period, depth, poll in (("f32 meters", [f[:2] for f in frames], 0.001, 3, 0.0005),
+                                            ("u16 millimeters", sensor, 0.001, 3, 0.0005),
+                                            (camera, sensor, 1 / 30, 3, 0.0005),
+                                            (camera, sensor, 1 / 30, 0, 0.0005),
+                                            (camera, sensor, 1 / 30, 0, 0.005)):
+        tracker = AsyncTracker(model, "house", (480, 640), capacity=4)
+        halt = threading.Event()
+
+        def producer(tracker=tracker, feed=feed, period=period, halt=halt):
+            i = 0
+            while not halt.is_set():
+                tracker.push_frame(*feed[i % len(feed)])
+                i += 1
+                time.sleep(period)
+
+        feeder = threading.Thread(target=producer, daemon=True)
+        feeder.start()
+        try:
+            tracker.run(main["pose"], max_frames=2)  # warm-up
+            dropped0 = tracker.dropped_frames
+            fps = profiling.FPSCounter()
+            reset_counts(kernels)
+            fps.start()
+            records = tracker.run(main["pose"], max_frames=64, pipeline_depth=depth,
+                                  idle_sleep_s=poll, on_pose=lambda rec: fps.count())
+            rate = fps.fps
+            counts = counts_of(kernels)
+        finally:
+            halt.set()
+            feeder.join(timeout=10)
+        dropped = tracker.dropped_frames - dropped0
+        tracker.close()
+        lat = np.array([r.latency_s for r in records]) * 1e3
+        skipped = sum(r.skipped_frames for r in records)
+        log(f"async, producer pushing {name}, pipeline_depth={depth}, idle_sleep_s={poll}: "
+            f"{len(records)} records, "
+            f"{rate:.2f} frames/s, "
+            f"latency_ms median={np.median(lat):.3f} p90={np.percentile(lat, 90):.3f}, "
+            f"dispatch_ms median={np.median([r.dispatch_s for r in records]) * 1e3:.3f}, "
+            f"dropped_frames={dropped}, skipped_frames={skipped}, pushed={tracker.pushed_frames}; "
+            f"launches (render, attention)={counts}")
+        if len(records) != 64 or not all(np.isfinite(r.pose).all() for r in records):
+            raise AssertionError(f"async: {len(records)} records, or a pose that is not finite")
+        if counts != (64, 64) or feeder.is_alive():
+            raise AssertionError(f"async launched {counts}, want (64, 64)")
+
+
+def run_infer_cores(torch, np, fp, kernels, main):
+    """The refiner and scorer cores at n = 1, 5, 64, 252 on crops of the
+    house from render_and_transform at 252 hypotheses: the refiner against a
+    direct call of its net on the same rows, the scorer against a direct call
+    on the same zero-padded batch (its att_cross attends across the padding)."""
+    import torch.nn.functional as F
+
+    from foundationpose_cpp_tpu_torch.pipeline import foundationpose as fpp
+    from foundationpose_cpp_tpu_torch.pipeline.renderer import render_and_transform
+
+    model, (rgb, depth, mask) = main["model"], main["frames"][0]
+    cfg, mesh, K = model._cfg, model._meshes["house"], model._K
+    refiner = fp.create_refiner_core(str(ROOT / "weights" / "refiner_multi_full.npz"))
+    scorer = fp.create_scorer_core(str(ROOT / "weights" / "scorer_multi_full.npz"))
+    with torch.inference_mode():
+        depth_t, mask_t, rgb_t = (model._upload(a) for a in (depth, mask, rgb))
+        poses, xyz_map, _ = fpp.prepare_register(depth_t, mask_t, model._rot_grid, K, cfg)
+        r_in, t_in = render_and_transform(mesh, poses, rgb_t, xyz_map, K, cfg.refine_crop_ratio, cfg)
+    for core, per_call in ((refiner, (0, 1)), (scorer, (0, 2))):
+        kind = core.output_names()
+        for n in (1, 5, 64, 252):
+            blobs = {"render_input": r_in[:n], "transf_input": t_in[:n]}
+            core.infer(blobs)  # warm-up
+            reset_counts(kernels)
+            got = core.infer(blobs)
+            counts = counts_of(kernels)
+            bucket = next(b for b in core.buckets if b >= n)
+            pad = (0, 0, 0, 0, 0, 0, 0, bucket - n)
+            with torch.inference_mode():
+                if "scores" in kind:
+                    direct = core.net(F.pad(r_in[:n], pad), F.pad(t_in[:n], pad))
+                    direct = {k: v[:n] for k, v in direct.items()}
+                else:
+                    direct = core.net(r_in[:n], t_in[:n])
+            delta = max(float((got[k] - direct[k]).abs().max()) for k in kind)
+            scale = max(float(direct[k].abs().max()) for k in kind)
+            ms = cuda_ms(torch, lambda: core.infer(blobs), 5)
+            # padded rows change nothing but the convolution plans of a
+            # refiner batch that is not a bucket: bf16 rounding apart
+            limit = 0.0 if ("scores" in kind or n == bucket) else 0.02 * max(scale, 1.0)
+            log(f"infer core {'/'.join(kind)} n={n} (bucket {bucket}): max|d| vs direct "
+                f"{'padded ' if 'scores' in kind else ''}call={delta:.3e} (limit {limit:.1e}, "
+                f"max|out|={scale:.3f}) ms={ms:.3f} launches (render, attention)={counts}")
+            if delta > limit or counts != per_call:
+                raise AssertionError(f"infer core {kind} n={n}: |d| {delta}, launches {counts}")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -628,6 +878,7 @@ def main() -> int:
         from foundationpose_cpp_tpu_torch.meshio import procedural as tproc
         from foundationpose_cpp_tpu_torch.ops import attention, cuda_build, rasterize_tiled, render
         from foundationpose_cpp_tpu_torch.tools import raster_region_sweep as sweep
+        from foundationpose_cpp_tpu_torch.utils import profiling
         from foundationpose_cpp_tpu_torch.utils import synthetic as syn
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script: {exc}", file=sys.stderr)
@@ -654,6 +905,13 @@ def main() -> int:
     render_rows = check_render(torch, transforms, render, sweep)
     raster_rows = check_rasterize(torch, transforms, rasterize_tiled, render, sweep)
     launches = run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled, K)
+    # the serving paths around Track and Register, each with the counts of
+    # (render, attention) set to 0 just before it and read just after
+    serving = (render.render_views, attention.mha_packed_qkv)
+    run_buckets(torch, np, fp, serving, K, launches)
+    run_packed(torch, np, profiling, serving, launches)
+    run_async(torch, np, profiling, serving, launches)
+    run_infer_cores(torch, np, fp, serving, launches)
     counted = (attention.mha_packed_qkv, attention.mha_whole_head, render.render_views,
                rasterize_tiled.rasterize_tiled)
     with tempfile.TemporaryDirectory() as tmp:

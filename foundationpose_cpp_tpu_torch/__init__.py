@@ -5,8 +5,11 @@ as the reference: model-based Register (252 icosphere hypotheses -> render
 and compare refine -> score -> argmax) and per-frame Track, for RGB-D input
 and textured meshes. Its two hand-written CUDA kernels (``csrc/``) take the
 place of the JAX package's Pallas kernels on the main path: the render
-branch and the packed-qkv attention. Entry points run on the card unless the
-caller passes ``device="cpu"``. Nothing here imports JAX.
+branch and the packed-qkv attention. Around them: size buckets, the
+packed-frame tracker and the async tracker over a native frame ring
+(``pipeline/``, ``native/``), and the named-blob inference cores
+(``create_refiner_core``, ``create_scorer_core``). Entry points run on the
+card unless the caller passes ``device="cpu"``. Nothing here imports JAX.
 
 TF32 is switched off for matmuls and cuDNN convolutions: geometry and
 render code run in f32, and under TF32 the clip transform, the edge
@@ -30,6 +33,10 @@ from foundationpose_cpp_tpu_torch.meshio.mesh_loader import (  # noqa: E402
     make_mesh_asset,
 )
 from foundationpose_cpp_tpu_torch.models import networks  # noqa: E402
+from foundationpose_cpp_tpu_torch.models.infer_core import (  # noqa: E402
+    create_refiner_core,
+    create_scorer_core,
+)
 from foundationpose_cpp_tpu_torch.pipeline.foundationpose import (  # noqa: E402
     FoundationPose,
     create_foundationpose_model,
@@ -41,6 +48,8 @@ __all__ = [
     "FoundationPose",
     "MeshAsset",
     "create_foundationpose_model",
+    "create_refiner_core",
+    "create_scorer_core",
     "load_mesh",
     "make_mesh_asset",
     "networks",

@@ -104,3 +104,13 @@ def build_net(sd: dict[str, torch.Tensor], kind: str, num_heads: int = 4):
 def load_npz(path: str) -> dict[str, torch.Tensor]:
     """``weights/*_full.npz`` -> port ``state_dict``, without JAX."""
     return params_from_jax(checkpoint.load_params(path))
+
+
+def as_net(net, kind: str, device: torch.device, dtype: torch.dtype):
+    """An nn.Module, a converted state_dict, or an npz path -> the module on
+    ``device``, computing in ``dtype``."""
+    if isinstance(net, str):
+        net = load_npz(net)
+    if isinstance(net, dict):
+        net = build_net(net, kind)
+    return net.to(device).cast_matmul_weights(dtype).eval()

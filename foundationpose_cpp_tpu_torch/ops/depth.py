@@ -37,12 +37,18 @@ def erode_depth(
     depth_diff_thres: float = 0.001,
     ratio_thres: float = 0.8,
     zfar: float = 100.0,
+    valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Zero out pixels whose neighborhood disagrees (sampling.cu:21-82).
 
     A pixel survives iff its own depth is in [0.1, zfar) and at most
     ratio_thres of its in-bounds (2r+1)^2 neighbors (itself included) are
     invalid or differ by more than depth_diff_thres.
+
+    ``valid`` (bool (H, W), optional) marks the real image extent when the
+    array is padded to a size bucket: a neighbor outside it counts as out of
+    bounds (in neither ``bad`` nor ``total``), and a pixel outside it is 0,
+    so a padded frame erodes as the unpadded one does.
     """
     d = depth
     bad = torch.zeros_like(d)
@@ -50,11 +56,16 @@ def erode_depth(
     for dy in range(-radius, radius + 1):
         for dx in range(-radius, radius + 1):
             nb, inb = _shifted(d, dy, dx)
+            if valid is not None:
+                nb_valid, _ = _shifted(valid, dy, dx)
+                inb = inb & nb_valid
             is_bad = (nb < 0.1) | (nb >= zfar) | (torch.abs(nb - d) > depth_diff_thres)
             bad = bad + (inb & is_bad).to(d.dtype)
             total = total + inb.to(d.dtype)
     keep = (bad / torch.clamp(total, min=1.0)) <= ratio_thres
     valid_center = (d >= 0.1) & (d < zfar)
+    if valid is not None:
+        valid_center = valid_center & valid
     return torch.where(valid_center & keep, d, torch.zeros_like(d))
 
 

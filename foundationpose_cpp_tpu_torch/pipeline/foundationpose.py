@@ -17,12 +17,20 @@ NaN-poisoned pose, so a Register costs one host synchronization.
             refine_itr x [render+crop -> refiner -> compose delta] ->
             render+crop(1.1) -> scorer -> argmax
   track:    depth_to_xyz -> refine_itr x [render+crop -> refiner -> compose]
+
+With ``FoundationPoseConfig.size_buckets`` a frame is copied into its size
+bucket's device buffers (zeros beyond its real extent) and the real (h, w)
+rides along as ``image_hw``, so one set of buffers serves every camera size
+in the bucket (reference README.md:20). ``make_packed_tracker`` is the
+deployment fast path: one uint8 buffer in, a device pose out, nothing read
+back.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from foundationpose_cpp_tpu_torch.config import DEFAULT_CONFIG, FoundationPoseConfig
 from foundationpose_cpp_tpu_torch.geometry import icosphere, transforms
@@ -42,12 +50,14 @@ def refine_loop(
     K: torch.Tensor,
     refine_itr: int,
     cfg: FoundationPoseConfig,
+    image_hw: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """refine_itr x [render -> refiner -> compose delta]
-    (foundationpose.cpp:200-213)."""
+    (foundationpose.cpp:200-213). image_hw: the real (h, w) of a frame
+    padded to a size bucket (None: the tensors' shape)."""
     for _ in range(refine_itr):
         render_in, transf_in = render_and_transform(
-            mesh, poses, rgb, xyz_map, K, cfg.refine_crop_ratio, cfg
+            mesh, poses, rgb, xyz_map, K, cfg.refine_crop_ratio, cfg, image_hw
         )
         out = refiner(render_in, transf_in)
         poses = transforms.apply_refine_delta(
@@ -62,15 +72,26 @@ def prepare_register(
     rot_grid: torch.Tensor,
     K: torch.Tensor,
     cfg: FoundationPoseConfig,
+    image_hw: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Register front end: depth filters -> translation guess -> hypothesis
-    poses, plus the raw-depth xyz map the crops sample.
+    poses, plus the raw-depth xyz map the crops sample. With image_hw the
+    erosion treats pixels beyond the real extent as out of bounds; the
+    bilateral filter and the translation guess already skip the padding's
+    zero depth and mask.
 
     Returns (poses0 (M,4,4), xyz_map, ok).
     """
     df = cfg.depth_filter
+    extent = None
+    if image_hw is not None:
+        hh, ww = depth.shape
+        rows = torch.arange(hh, device=depth.device)[:, None]
+        cols = torch.arange(ww, device=depth.device)[None, :]
+        extent = (rows < image_hw[0]) & (cols < image_hw[1])
     eroded = depth_ops.erode_depth(
-        depth, df.erode_radius, df.erode_depth_diff_thres, df.erode_ratio_thres, df.zfar
+        depth, df.erode_radius, df.erode_depth_diff_thres, df.erode_ratio_thres, df.zfar,
+        valid=extent,
     )
     filtered = depth_ops.bilateral_filter_depth(
         eroded, df.bilateral_radius, df.bilateral_sigma_d, df.bilateral_sigma_r,
@@ -93,11 +114,12 @@ def refine_and_score(
     K: torch.Tensor,
     refine_itr: int,
     cfg: FoundationPoseConfig,
+    image_hw: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Refine loop + score render + scorer. Returns (poses (M,4,4), scores (M,))."""
-    poses = refine_loop(mesh, refiner, poses, rgb, xyz_map, K, refine_itr, cfg)
+    poses = refine_loop(mesh, refiner, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw)
     render_in, transf_in = render_and_transform(
-        mesh, poses, rgb, xyz_map, K, cfg.score_crop_ratio, cfg
+        mesh, poses, rgb, xyz_map, K, cfg.score_crop_ratio, cfg, image_hw
     )
     out = scorer(render_in, transf_in)
     return poses, out["scores"][:, 0]
@@ -114,12 +136,14 @@ def register_step(
     K: torch.Tensor,
     refine_itr: int,
     cfg: FoundationPoseConfig,
+    image_hw: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The full Register computation. Returns (best_pose, refined_poses,
-    scores, ok); best_pose is NaN when the translation guess failed."""
-    poses, xyz_map, ok = prepare_register(depth, mask, rot_grid, K, cfg)
+    scores, ok); best_pose is NaN when the translation guess failed.
+    image_hw: the real (h, w) of a frame padded to a size bucket."""
+    poses, xyz_map, ok = prepare_register(depth, mask, rot_grid, K, cfg, image_hw)
     poses, scores = refine_and_score(
-        mesh, refiner, scorer, poses, rgb, xyz_map, K, refine_itr, cfg
+        mesh, refiner, scorer, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw
     )
     best = torch.argmax(scores)  # getMaxScoreIndex (thrust) equivalent
     best_pose = torch.where(ok, poses[best], torch.full_like(poses[best], float("nan")))
@@ -135,21 +159,62 @@ def track_step(
     K: torch.Tensor,
     refine_itr: int,
     cfg: FoundationPoseConfig,
+    image_hw: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Track for a (N, 4, 4) batch of instances of one mesh (N=1: the
-    reference Track)."""
+    reference Track). image_hw: the real (h, w) of a padded frame."""
     xyz_map = depth_ops.depth_to_xyz(depth, K, cfg.min_depth)
-    return refine_loop(mesh, refiner, poses, rgb, xyz_map, K, refine_itr, cfg)
+    return refine_loop(mesh, refiner, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw)
 
 
-def _as_net(net, kind: str, device: torch.device, dtype: torch.dtype):
-    """An nn.Module, a converted state_dict, or an npz path -> module on
-    device, computing in ``dtype``."""
-    if isinstance(net, str):
-        net = convert_jax.load_npz(net)
-    if isinstance(net, dict):
-        net = convert_jax.build_net(net, kind)
-    return net.to(device).cast_matmul_weights(dtype).eval()
+DEPTH_BYTES = {"u16mm": 2, "f32": 4}
+
+
+def _check_depth_format(depth_format: str) -> None:
+    if depth_format not in DEPTH_BYTES:
+        raise ValueError(f"depth_format must be 'u16mm' or 'f32', got {depth_format!r}")
+
+
+def upsample_rgb_half(small: torch.Tensor) -> torch.Tensor:
+    """(h/2, w/2, 3) uint8 -> (h, w, 3) f32 by 2x bilinear upsampling with
+    clamped edges: the values of the JAX package's
+    ``jax.image.resize(..., method="linear")``."""
+    hh, ww = small.shape[:2]
+    planes = small.permute(2, 0, 1)[None].to(torch.float32)
+    up = F.interpolate(planes, size=(2 * hh, 2 * ww), mode="bilinear", align_corners=False)
+    return up[0].permute(1, 2, 0)
+
+
+def unpack_frame(
+    packed: torch.Tensor,
+    frame_hw: tuple[int, int],
+    depth_format: str = "u16mm",
+    rgb_half: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One packed uint8 frame (``FoundationPose.pack_frame``'s layout) ->
+    (rgb (h, w, 3) uint8, depth (h, w) f32 meters), on packed's device.
+
+    An rgb_half colour plane is upsampled (``upsample_rgb_half``) and
+    truncated to uint8, as the JAX package's CPU warp truncates it
+    (``warp_crop_linear_u8``'s ``astype(uint32)``). u16mm depth is
+    ``mm * 1e-3`` in f32, as in the JAX package.
+    """
+    h, w = frame_hw
+    rgb_n = (h // 2) * (w // 2) * 3 if rgb_half else h * w * 3
+    if rgb_half:
+        rgb = upsample_rgb_half(packed[:rgb_n].reshape(h // 2, w // 2, 3)).to(torch.uint8)
+    else:
+        rgb = packed[:rgb_n].reshape(h, w, 3)
+    raw = packed[rgb_n:]
+    if raw.storage_offset() % DEPTH_BYTES[depth_format]:
+        # a dtype view needs an offset that is a multiple of the new size
+        raw = raw.clone()
+    if depth_format == "u16mm":
+        mm = raw.view(torch.int16).to(torch.int32) & 0xFFFF
+        depth = mm.to(torch.float32) * 1e-3
+    else:
+        depth = raw.view(torch.float32)
+    return rgb, depth.reshape(h, w)
 
 
 class FoundationPose:
@@ -175,13 +240,11 @@ class FoundationPose:
     ) -> None:
         if not mesh_assets:
             raise ValueError("[FoundationPose] need at least one mesh asset")
-        if config.size_buckets is not None:
-            raise NotImplementedError("[FoundationPose] size_buckets is not ported")
         self._device = resolve_device(device)
         self._cfg = config
         dtype = torch.bfloat16 if config.use_bf16_models else torch.float32
-        self._refiner = _as_net(refiner, "refiner", self._device, dtype)
-        self._scorer = _as_net(scorer, "scorer", self._device, dtype)
+        self._refiner = convert_jax.as_net(refiner, "refiner", self._device, dtype)
+        self._scorer = convert_jax.as_net(scorer, "scorer", self._device, dtype)
         self._K = torch.as_tensor(np.asarray(intrinsic, np.float32), device=self._device)
         self._max_h = max_input_image_h
         self._max_w = max_input_image_w
@@ -196,6 +259,12 @@ class FoundationPose:
             icosphere.make_rotation_grid(config.n_views, config.inplane_step_deg),
             device=self._device,
         )
+        # one set of device input buffers per size bucket: {(bh, bw): {name: tensor}}
+        self._bucket_buffers: dict[tuple[int, int], dict[str, torch.Tensor]] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
 
     # validation (CheckInputArguments, foundationpose.cpp:155-179)
 
@@ -226,15 +295,65 @@ class FoundationPose:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
 
+    # size buckets (reference README.md:20 dynamic input sizes)
+
+    def _bucket_for(self, h: int, w: int) -> tuple[int, int] | None:
+        """Smallest configured bucket (by area) fitting (h, w); None when
+        bucketing is off."""
+        buckets = self._cfg.size_buckets
+        if buckets is None:
+            return None
+        for bh, bw in sorted(buckets, key=lambda b: b[0] * b[1]):
+            if bh >= h and bw >= w:
+                return (int(bh), int(bw))
+        raise ValueError(
+            f"[FoundationPose] no size bucket fits ({h}, {w}); buckets={buckets}"
+        )
+
+    @staticmethod
+    def _pad_to(arr: np.ndarray, bh: int, bw: int) -> np.ndarray:
+        """Zero-pad an (h, w, ...) array at the bottom and right to (bh, bw, ...)."""
+        h, w = arr.shape[:2]
+        pad = [(0, bh - h), (0, bw - w)] + [(0, 0)] * (arr.ndim - 2)
+        return np.pad(np.asarray(arr), pad)
+
+    def _into_bucket(self, bucket: tuple[int, int], name: str, a: np.ndarray) -> torch.Tensor:
+        """Copy ``a`` into the bucket's device buffer ``name``: zeros beyond
+        its real extent, then the frame (the same tensor as
+        ``_pad_to(a, *bucket)`` uploaded)."""
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        bufs = self._bucket_buffers.setdefault(bucket, {})
+        buf = bufs.get(name)
+        if buf is None or buf.dtype != src.dtype:
+            buf = torch.zeros((*bucket, *src.shape[2:]), dtype=src.dtype, device=self._device)
+            bufs[name] = buf
+        h, w = src.shape[:2]
+        buf[h:].zero_()
+        buf[:h, w:].zero_()
+        buf[:h, :w].copy_(src)
+        return buf
+
+    @torch.inference_mode()
+    def _frame(self, *arrays: np.ndarray) -> tuple[list[torch.Tensor], tuple[int, int] | None]:
+        """Upload one frame's images: as they are, or into their size
+        bucket's buffers together with the real (h, w)."""
+        h, w = arrays[0].shape[:2]
+        bucket = self._bucket_for(h, w)
+        if bucket is None:
+            return [self._upload(a) for a in arrays], None
+        names = ("rgb", "depth", "mask")
+        return [self._into_bucket(bucket, n, a) for n, a in zip(names, arrays)], (h, w)
+
     # public API
 
     @torch.inference_mode()
     def _run_register(self, rgb, depth, mask, target_name, refine_itr):
         self._check_inputs(rgb, depth, mask, target_name)
+        (rgb_t, depth_t, mask_t), image_hw = self._frame(rgb, depth, mask)
         return register_step(
             self._meshes[target_name], self._refiner, self._scorer,
-            self._upload(rgb), self._upload(depth), self._upload(mask),
-            self._rot_grid, self._K, int(refine_itr), self._cfg,
+            rgb_t, depth_t, mask_t, self._rot_grid, self._K, int(refine_itr), self._cfg,
+            image_hw,
         )
 
     def register(
@@ -284,9 +403,10 @@ class FoundationPose:
         (an extension over the reference, which tracks one per call)."""
         self._check_inputs(rgb, depth, None, target_name)
         poses = self._upload(np.asarray(hyp_poses, dtype=np.float32))
+        (rgb_t, depth_t), image_hw = self._frame(rgb, depth)
         out = track_step(
-            self._meshes[target_name], self._refiner, self._upload(rgb),
-            self._upload(depth), poses, self._K, int(refine_itr), self._cfg,
+            self._meshes[target_name], self._refiner, rgb_t, depth_t, poses, self._K,
+            int(refine_itr), self._cfg, image_hw,
         )
         return out.cpu().numpy()
 
@@ -301,6 +421,109 @@ class FoundationPose:
         """Per-frame pose update (FoundationPose::Track, :230-265)."""
         pose = np.asarray(hyp_pose, dtype=np.float32)[None]
         return self.track_batch(rgb, depth, pose, target_name, refine_itr)[0]
+
+    def make_packed_tracker(
+        self,
+        target_name: str,
+        frame_hw: tuple[int, int],
+        refine_itr: int = 1,
+        depth_format: str = "u16mm",
+        rgb_half: bool = False,
+    ):
+        """Deployment fast path for per-frame tracking (``AsyncTracker``).
+
+        Returns ``step(packed, pose) -> pose``: Track on ONE packed uint8
+        frame (rgb bytes, then depth bytes: ``pack_frame``'s layout, the
+        ``FrameRing`` wire format) from a (4, 4) pose. Either may be a device
+        tensor or a numpy array (uploaded once). The result is a (4, 4) f32
+        tensor on the model's device and nothing is read back, so calls chain
+        with the pose left on the card; the caller reads poses at its own
+        cadence.
+
+        depth_format "u16mm" (default): little-endian uint16 millimeters, the
+        camera's native format (h*w*5 bytes a frame, converted to meters on
+        the device); "f32": float32 meters (h*w*7 bytes). rgb_half ships the
+        colour plane at half resolution, 2x2 box-downsampled by
+        ``pack_frame`` and bilinearly upsampled on the device (see
+        ``unpack_frame``); it needs even h and w.
+        """
+        if target_name not in self._meshes:
+            raise KeyError(
+                f"[FoundationPose] unknown target '{target_name}'; "
+                f"registered: {sorted(self._meshes)}"
+            )
+        _check_depth_format(depth_format)
+        h, w = int(frame_hw[0]), int(frame_hw[1])
+        if h > self._max_h or w > self._max_w:
+            raise ValueError(
+                f"[FoundationPose] frame ({h}, {w}) exceeds max ({self._max_h}, {self._max_w})"
+            )
+        if rgb_half and (h % 2 or w % 2):
+            raise ValueError(f"rgb_half requires even frame dims, got ({h}, {w})")
+        mesh = self._meshes[target_name]
+        nbytes = self.packed_frame_bytes((h, w), depth_format, rgb_half)
+        itr = int(refine_itr)
+
+        @torch.inference_mode()
+        def step(packed, pose) -> torch.Tensor:
+            packed = torch.as_tensor(packed, device=self._device)
+            if packed.dtype != torch.uint8 or packed.numel() != nbytes:
+                raise ValueError(
+                    f"packed frame must be {nbytes} uint8 bytes, got {packed.dtype} "
+                    f"{tuple(packed.shape)}"
+                )
+            pose = torch.as_tensor(pose, dtype=torch.float32, device=self._device)
+            rgb, depth = unpack_frame(packed.reshape(-1), (h, w), depth_format, rgb_half)
+            return track_step(mesh, self._refiner, rgb, depth, pose[None], self._K, itr, self._cfg)[0]
+
+        return step
+
+    @staticmethod
+    def packed_frame_bytes(
+        frame_hw: tuple[int, int],
+        depth_format: str = "u16mm",
+        rgb_half: bool = False,
+    ) -> int:
+        """Byte size of one make_packed_tracker / FrameRing frame."""
+        h, w = int(frame_hw[0]), int(frame_hw[1])
+        depth_b = h * w * DEPTH_BYTES[depth_format]
+        rgb_b = (h // 2) * (w // 2) * 3 if rgb_half else h * w * 3
+        return rgb_b + depth_b
+
+    @staticmethod
+    def pack_frame(
+        rgb: np.ndarray,
+        depth: np.ndarray,
+        depth_format: str = "u16mm",
+        rgb_half: bool = False,
+    ) -> np.ndarray:
+        """Pack (rgb u8 (H,W,3), depth (H,W)) into one contiguous u8 buffer
+        in make_packed_tracker's wire layout (numpy, byte for byte the JAX
+        package's).
+
+        For "u16mm", f32-meter depth is quantized to whole millimeters
+        (values clip to [0, 65.535] m, NaN to 0); a uint16 array passes
+        through unconverted. rgb_half 2x2-box-downsamples the colour plane
+        with rounding.
+        """
+        rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+        if rgb_half:
+            hh, ww = rgb.shape[0] // 2, rgb.shape[1] // 2
+            rgb = (
+                rgb.reshape(hh, 2, ww, 2, 3).astype(np.uint16).sum(axis=(1, 3)) + 2
+            ) // 4
+            rgb = rgb.astype(np.uint8)
+        _check_depth_format(depth_format)
+        if depth_format == "u16mm":
+            if depth.dtype == np.uint16:
+                d = np.ascontiguousarray(depth)
+            else:
+                d = np.clip(
+                    np.nan_to_num(np.asarray(depth, np.float64)) * 1000.0, 0.0, 65535.0,
+                ).round().astype(np.uint16)
+        else:
+            d = np.ascontiguousarray(depth, dtype=np.float32)
+        return np.concatenate([rgb.reshape(-1), d.view(np.uint8).reshape(-1)])
 
     def convert_pose_mesh2bbox(self, pose: np.ndarray, target_name: str) -> np.ndarray:
         """Pose frame change mesh -> oriented bbox (mesh_loader.hpp:75-81)."""

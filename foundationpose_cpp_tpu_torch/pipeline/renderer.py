@@ -100,15 +100,19 @@ def render_and_transform(
     K: torch.Tensor,
     crop_ratio: float,
     cfg: FoundationPoseConfig,
+    image_hw: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The two 6-channel model input crops for N poses.
 
     poses (N, 4, 4); rgb (H, W, 3) uint8; xyz_map (H, W, 3) f32 from the RAW
-    depth (foundationpose.cpp:297-301); crop_ratio 1.2 refine / 1.1 score.
+    depth (foundationpose.cpp:297-301); crop_ratio 1.2 refine / 1.1 score;
+    image_hw the real (h, w) when rgb and xyz_map are zero-padded to a size
+    bucket (None: their shape). The zero padding reads as the warps' zero
+    border, so only the clip matrix needs the real extent.
     Returns (render_input, transf_input), each (N, crop_h, crop_w, 6) f32.
     """
     ch, cw = cfg.crop_window_h, cfg.crop_window_w
-    h, w = rgb.shape[:2]
+    h, w = image_hw if image_hw is not None else rgb.shape[:2]
     tfs = transforms.compute_crop_window_tf(poses, K, (ch, cw), crop_ratio, mesh.diameter)
     bbox2d = transforms.construct_bbox2d(tfs, ch, cw)
     clip_mat = transforms.pose_clip_matrix(poses, bbox2d, K, h, w, cfg.znear, cfg.zfar)

@@ -247,6 +247,61 @@ def test_foundationpose_f32_nets_on_the_card(card):
     assert np.linalg.norm(pose[:3, 3] - gt[:3, 3]) < 0.1 * house.diameter
 
 
+def _house_model(card, cfg=FoundationPoseConfig()):
+    """The house at 480x640 with the trained weights: (model, gt, rgb, depth, mask)."""
+    house = procedural.textured_house(name="house")
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], np.float32)
+    gt = synthetic.default_pose(0.6)
+    frame = synthetic.render_scene(MeshConstants.from_asset(house, card), gt, K, 480, 640)
+    model = create_foundationpose_model(
+        str(WEIGHTS / "refiner_multi_full.npz"), str(WEIGHTS / "scorer_multi_full.npz"),
+        [house], K, 480, 640, config=cfg)
+    return (model, gt, *frame)
+
+
+def test_bucketed_matches_unbucketed_on_the_card(card):
+    """A 480x640 frame in a (480, 640) bucket gives the unbucketed poses and
+    scores; a 448x608 crop of it (same intrinsics) shares the bucket's one
+    buffer set and still finds the house."""
+    off, gt, rgb, depth, mask = _house_model(card)
+    on = _house_model(card, FoundationPoseConfig(size_buckets=((480, 640),)))[0]
+    for got, want in zip(on.register_with_scores(rgb, depth, mask, "house"),
+                         off.register_with_scores(rgb, depth, mask, "house")):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    pose = off.register(rgb, depth, mask, "house")
+    np.testing.assert_allclose(on.track(rgb, depth, pose, "house"),
+                               off.track(rgb, depth, pose, "house"), rtol=0, atol=1e-5)
+    crop = on.register(rgb[:448, :608], depth[:448, :608], mask[:448, :608], "house")
+    assert np.linalg.norm(crop[:3, 3] - gt[:3, 3]) < 0.1 * on._assets["house"].diameter
+    assert list(on._bucket_buffers) == [(480, 640)]
+
+
+@pytest.mark.parametrize("depth_format,rgb_half", [("u16mm", False), ("f32", False),
+                                                   ("u16mm", True)])
+def test_packed_step_matches_track_on_the_card(card, depth_format, rgb_half):
+    """One step on a packed frame already on the card equals track() on the
+    frame it decodes, launches the render and the attention kernel once
+    each, and returns the pose on the card."""
+    from foundationpose_cpp_tpu_torch.pipeline.foundationpose import unpack_frame
+
+    model, gt, rgb, depth, _ = _house_model(card)
+    packed = model.pack_frame(rgb, depth, depth_format, rgb_half)
+    dev = torch.from_numpy(packed).to(card)
+    step = model.make_packed_tracker("house", (480, 640), depth_format=depth_format,
+                                     rgb_half=rgb_half)
+    before = (render.render_views.launches, attention.mha_packed_qkv.launches)
+    got = step(dev, torch.from_numpy(gt).to(card))
+    assert (render.render_views.launches, attention.mha_packed_qkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.device.type == "cuda" and got.shape == (4, 4)
+    rgb_q, depth_q = (t.cpu().numpy() for t in unpack_frame(dev, (480, 640), depth_format,
+                                                           rgb_half))
+    want = model.track(rgb_q, depth_q, gt, "house")
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-5)
+    assert np.degrees(np.arccos(np.clip((np.trace(want[:3, :3] @ gt[:3, :3].T) - 1) / 2,
+                                        -1, 1))) < 5.0
+
+
 def _render_args(mesh, ch, cw, n, card, tz=0.45):
     cfg = FoundationPoseConfig()
     rng = np.random.default_rng(0)
