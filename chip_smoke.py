@@ -22,7 +22,17 @@ it and read just after:
 - the dataset sequence at full width: the same six frames and the textured
   mesh written in the mustard0 layout, then ``run_dataset`` on them;
 - the dataset sequence with narrow seeded nets (head_dim 16), which routes
-  attention to the head-split kernel.
+  attention to the head-split kernel;
+- a scanned mesh (the reference's BundleSDF configuration): the 105k-face
+  ``scanned_blob`` through a binary PLY, the native parser, decimation and
+  adaptive subdivision; the render and raster kernels at its face counts
+  against their plain versions; Track, scoring and Register on it;
+- eight cubes tracked in one ``track_batch`` (the multi-object
+  configuration);
+- 64 chained packed steps and a Register under
+  ``torch.cuda.set_sync_debug_mode("error")``;
+- the port bench (``foundationpose_cpp_tpu_torch.bench``), whose JSON line
+  it prints.
 
 It checks that each path went through its kernels and found the object.
 Prints the card, a ``{"kernels": [...]}`` line and, last, the device line.
@@ -178,8 +188,9 @@ def attention_row(torch, F, name, run, plain, q, k, v, out, dtype):
 
 
 def check_attention(torch, attention):
-    """K1 in bf16 at the encoder (252, 400, 3*512), att_cross (1, 252, 3*512)
-    and Track (1, 400, 3*512) shapes and at (4, 1500, 3*512), more tokens
+    """K1 in bf16 at the encoder (252, 400, 3*512), att_cross (1, 252, 3*512),
+    Track (1, 400, 3*512) and track_batch of 8 (8, 400, 3*512) shapes and at
+    (4, 1500, 3*512), more tokens
     than a block could keep f32 logits for in shared memory, and at the encoder shape in f32; planted faults in the
     plain version must fail the same tolerance against the kernel."""
     import torch.nn.functional as F
@@ -188,7 +199,7 @@ def check_attention(torch, attention):
     heads, rows = 4, []
     for b, t, dtype in ((252, 400, torch.bfloat16), (1, 252, torch.bfloat16),
                         (252, 400, torch.float32), (1, 400, torch.bfloat16),
-                        (4, 1500, torch.bfloat16)):
+                        (8, 400, torch.bfloat16), (4, 1500, torch.bfloat16)):
         qkv = torch.randn((b, t, 1536), generator=gen, device="cuda").to(dtype)
         got = attention.mha_packed_qkv(qkv, heads)
         want = attention.mha_packed_qkv_plain(qkv, heads)
@@ -241,18 +252,19 @@ def check_whole_head(torch, attention):
     return rows
 
 
-def check_render(torch, transforms, render, sweep):
+def check_render(torch, transforms, render, sweep, cases=None):
     """K2 at 160x160 on the 6016-face sphere (faces of a few pixels) and the
     house (a dozen faces of thousands) at 252 views, and on the sphere at one
-    view (Track's shape): parity on up to 16 views, the same on plane
-    coefficients handed in (the scatter and the resolve alone: 0 pixels off),
-    and the times of the wrapper, of the render kernel's launch alone on a
-    filled vertex buffer, and of the wrapper queued behind other work."""
+    view (Track's shape), or on ``cases`` of (name, n, crop, asset): parity
+    on up to 16 views, the same on plane coefficients handed in (the scatter
+    and the resolve alone: 0 pixels off), and the times of the wrapper, of
+    the render kernel's launch alone on a filled vertex buffer, and of the
+    wrapper queued behind other work."""
     from foundationpose_cpp_tpu_torch.ops import rasterize as ras
 
     rows = []
-    for name, n, crop in sweep.RENDER_CASES[:3]:
-        case = sweep.render_case(name, n, crop)
+    for name, n, crop, asset in cases or [(*c, None) for c in sweep.RENDER_CASES[:3]]:
+        case = sweep.render_case(name, n, crop, asset=asset)
         mesh_args, poses, clip_mat, tail = case[:6], case[6], case[7], case[8:]
         sl = slice(0, min(n, 16))
         got = render.render_views(*case)
@@ -280,13 +292,17 @@ def check_render(torch, transforms, render, sweep):
         needed = tests_needed(torch, ras, clip, case[3], case[4], crop, crop)
         b_ms, b_by = bound(nbytes(*mesh_args, poses, clip_mat, got), needed * RENDER_TEST_FLOPS,
                            F32_FLOPS)
+        live = case[4][None, :].expand(n, -1)
+        empty = ((bbox[..., 1] < bbox[..., 0]) | (bbox[..., 3] < bbox[..., 2]))[live]
         log(f"render {name} N={n} {crop}x{crop} {int(case[4].sum())} faces: pixels_off={bad:.4%} "
             f"max_abs_err={err:.3e}; on handed-in coefficients pixels_off={bad_x:.4%} "
             f"max_abs_err={err_x:.3e}; wrapper_ms={k_ms:.4f} (checks + 2 launches) "
             f"render_kernel_launch_ms={launch_ms:.4f} wrapper_ms_queued={q_ms:.4f} "
             f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {needed} face-pixel tests "
-            f"needed, {done} done)")
-        rows.append(dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+            f"needed, {done} done; {empty.float().mean().item():.2%} of the faces' pixel "
+            f"bboxes empty; vertex buffer {n * case[0].shape[0] * 32} bytes)")
+        rows.append(dict(name=name, n=n, err=err, ms=k_ms, queued_ms=q_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -305,19 +321,19 @@ def tests_needed(torch, ras, clip, faces, face_valid, h: int, w: int) -> int:
     return int(span[valid].sum().item())
 
 
-def check_rasterize(torch, transforms, rasterize_tiled, render, sweep):
+def check_rasterize(torch, transforms, rasterize_tiled, render, sweep, cases=None):
     """K4 against its plain version: N=1 at 480x640 for the house and the
     6016-face sphere, N=4 at 120x160 for the sphere, N=2 at a ragged 123x157
-    for the house; share of pixels whose face ids agree and max error where
-    they agree, the same on plane coefficients handed in (100%), and the
-    times of the wrapper (checks + one launch), of the same queued behind
-    other work (the kernel alone, without the host's launch cost) and of the
-    plain version."""
+    for the house, or ``cases`` of (name, n, h, w, asset); share of pixels
+    whose face ids agree and max error where they agree, the same on plane
+    coefficients handed in (100%), and the times of the wrapper (checks +
+    one launch), of the same queued behind other work (the kernel alone,
+    without the host's launch cost) and of the plain version."""
     from foundationpose_cpp_tpu_torch.ops import rasterize as ras
 
     rows = []
-    for name, n, h, w in sweep.RASTER_CASES:
-        clip, faces, _, _, valid = sweep.raster_case(name, n, h, w)
+    for name, n, h, w, asset in cases or [(*c, None) for c in sweep.RASTER_CASES]:
+        clip, faces, _, _, valid = sweep.raster_case(name, n, h, w, asset=asset)
         got = rasterize_tiled.rasterize_tiled(clip, faces, h, w, face_valid=valid)
         want = rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w, face_valid=valid)
         coeffs, bbox = rasterize_tiled.rasterize_prepass(clip, faces, h, w, valid)
@@ -345,7 +361,7 @@ def check_rasterize(torch, transforms, rasterize_tiled, render, sweep):
         done = render.face_pixel_tests(bbox)
         needed = tests_needed(torch, ras, clip, faces, valid, h, w)
         b_ms, b_by = bound(nbytes(clip, faces, valid, got), needed * RENDER_TEST_FLOPS, F32_FLOPS)
-        log(f"rasterize_tiled {name} N={n} {h}x{w}: wrapper_ms={k_ms:.4f} (checks + 1 launch) "
+        log(f"rasterize_tiled {name} N={n} {h}x{w} {int(valid.sum())} faces: wrapper_ms={k_ms:.4f} (checks + 1 launch) "
             f"kernel_ms_queued={q_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
             f"{needed} face-pixel tests needed, {done} done)")
         rows.append(dict(name=name, n=n, err=err, share=share, ms=k_ms, queued_ms=q_ms,
@@ -861,6 +877,292 @@ def run_infer_cores(torch, np, fp, kernels, main):
                 raise AssertionError(f"infer core {kind} n={n}: |d| {delta}, launches {counts}")
 
 
+def scan_chain(np, tproc, tmp):
+    """The scanned-mesh chain of the reference's BundleSDF configuration:
+    scanned_blob(seed=3) -> binary PLY with its PNG texture -> the native
+    parser (timed alone) -> load_mesh (timed) -> decimation to 12,000 faces
+    -> subdivide_adaptive(max_faces=32_768, patch_k=4). Returns (raw asset,
+    final asset)."""
+    from foundationpose_cpp_tpu_torch import native
+    from foundationpose_cpp_tpu_torch.meshio import mesh_loader
+    from foundationpose_cpp_tpu_torch.meshio.decimate import decimate_vertex_clustering
+    from foundationpose_cpp_tpu_torch.meshio.subdivide import subdivide_adaptive
+
+    blob = tproc.scanned_blob(seed=3)
+    ply = tmp / "scan.ply"
+    tproc.write_ply(blob, str(ply), str(tmp / "scan_tex.png"), binary=True)
+    t0 = time.perf_counter()
+    native.load_mesh_library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = native.parse_ply_native(str(ply))
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    raw = mesh_loader.load_mesh("scan", str(ply))
+    load_ms = (time.perf_counter() - t0) * 1e3
+    if parsed is None or raw.num_faces != blob.num_faces or not np.array_equal(raw.faces, blob.faces):
+        raise AssertionError("the native PLY parser did not give back the scan's faces")
+    t0 = time.perf_counter()
+    dec = decimate_vertex_clustering(raw, target_faces=12_000)
+    final, info = subdivide_adaptive(dec, max_faces=32_768, patch_k=4)
+    prep_s = time.perf_counter() - t0
+    log(f"scan: faces raw={raw.num_faces} decimated={dec.num_faces} final={final.num_faces} "
+        f"subdivide_rounds={info['rounds']} (max residual {info['max_residual_error']:.3f}); "
+        f"vertices raw={raw.vertices.shape[0]} final={final.vertices.shape[0]}; mesh library "
+        f"build {build_s:.2f} s, native_parse_ms={parse_ms:.2f} load_ms={load_ms:.2f}, "
+        f"decimate + subdivide {prep_s:.2f} s on the host")
+    if not (raw.num_faces > 100_000 and dec.num_faces <= 12_000 and final.num_faces <= 32_768):
+        raise AssertionError(f"scan chain face counts {raw.num_faces}, {dec.num_faces}, "
+                             f"{final.num_faces}")
+    return raw, final
+
+
+def rotvec_matrix(np, axis, deg):
+    """Rotation of deg degrees about axis (Rodrigues)."""
+    k = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    a = math.radians(deg)
+    return np.eye(3) + math.sin(a) * kx + (1 - math.cos(a)) * kx @ kx
+
+
+def run_scan(torch, np, fp, tproc, syn, transforms, render, rasterize_tiled, sweep, kernels, K,
+             tmp):
+    """Config 4 (a scanned object): the scan chain, then K2 at 252 views and
+    at one view and K4 on the raw and the final mesh against their plain
+    versions; then with the trained weights, on render_scene frames of the
+    final mesh: Track from poses 15 deg / 8 mm off (tests/test_scan_pipeline.py's
+    gate: mean rotation error under 5 deg), the true pose outscoring its
+    180-degree flip, and a full Register with 6 Track frames (ADD-S and
+    rotation error printed, not gated: the JAX package never ran a Register
+    at scan scale)."""
+    from foundationpose_cpp_tpu_torch.ops import depth as depth_ops
+    from foundationpose_cpp_tpu_torch.pipeline import foundationpose as fpp
+    from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
+
+    raw, final = scan_chain(np, tproc, tmp)
+    render_rows = check_render(torch, transforms, render, sweep,
+                               [("scan", 252, 160, final), ("scan", 1, 160, final)])
+    log(f"  render kernel regions (N=1 runs {render.kernel_config()['few_region_w']}x"
+        f"{render.kernel_config()['few_region_h']} regions, "
+        f"{math.ceil(160 / render.kernel_config()['few_region_w']) ** 2} blocks)")
+    raster_rows = check_rasterize(torch, transforms, rasterize_tiled, render, sweep,
+                                  [("scan_raw", 1, 480, 640, raw),
+                                   ("scan_final", 1, 480, 640, final)])
+
+    h, w = 480, 640
+    mesh = MeshConstants.from_asset(final, "cuda")
+    model = fp.create_foundationpose_model(
+        str(ROOT / "weights" / "refiner_multi_full.npz"),
+        str(ROOT / "weights" / "scorer_multi_full.npz"), [final], K, h, w)
+    gts = []
+    for i in range(2):
+        gt = syn.default_pose(tz=0.6)
+        gt[:3, :3] = syn.euler_xyz_deg([0.0, 40.0 * i, 20.0 * i]) @ gt[:3, :3]
+        gts.append(gt.astype(np.float32))
+    reset_counts(kernels)
+    frames = [syn.render_scene(mesh, gt, K, h, w) for gt in gts]
+    rots, ranks = [], []
+    cfg, Kt = model._cfg, model._K
+    for i, ((rgb, depth, _), gt) in enumerate(zip(frames, gts)):
+        hyp = gt.copy()
+        hyp[:3, :3] = rotvec_matrix(np, np.array([0.15, -0.12, 0.10]) * (1 if i % 2 == 0 else -1),
+                                    15.0) @ hyp[:3, :3]
+        hyp[:3, 3] += np.array([0.004, -0.004, 0.006], np.float32)
+        tracked = model.track(rgb, depth, hyp, "scan", refine_itr=2)
+        rots.append(rot_err_deg(np, tracked, gt))
+        flip = gt.copy()
+        flip[:3, :3] = flip[:3, :3] @ syn.euler_xyz_deg([0.0, 0.0, 180.0])
+        with torch.inference_mode():
+            rgb_t, depth_t = model._upload(rgb), model._upload(depth)
+            xyz_map = depth_ops.depth_to_xyz(depth_t, Kt, cfg.min_depth)
+            _, scores = fpp.refine_and_score(
+                model._meshes["scan"], model._refiner, model._scorer,
+                torch.as_tensor(np.stack([gt, flip]).astype(np.float32), device="cuda"),
+                rgb_t, xyz_map, Kt, 1, cfg)
+        scores = scores.float().cpu().numpy()
+        ranks.append(bool(scores[0] > scores[1]))
+        log(f"scan track {i}: from {rot_err_deg(np, hyp, gt):.2f} deg / "
+            f"{np.linalg.norm(hyp[:3, 3] - gt[:3, 3]) * 1e3:.2f} mm off -> rot_err="
+            f"{rots[-1]:.2f} deg t_err={np.linalg.norm(tracked[:3, 3] - gt[:3, 3]) * 1e3:.2f} mm "
+            f"(refine_itr 2); scores true={scores[0]:.4f} flip={scores[1]:.4f}")
+    if float(np.mean(rots)) >= 5.0 or not all(ranks):
+        raise AssertionError(f"scan: tracked rotation errors {rots} (mean must be < 5 deg), "
+                             f"true pose outscores the flip {ranks}")
+
+    # a full Register on frame 0, then six Track frames of a slow drift
+    rgb, depth, mask = frames[0]
+    model.register(rgb, depth, mask, "scan")  # warm-up
+    drift = []
+    for i in range(6):
+        gt = gts[0].copy()
+        gt[:3, :3] = syn.euler_xyz_deg([0.0, 1.5 * i, 0.0]).astype(np.float32) @ gt[:3, :3]
+        gt[0, 3] += 0.003 * i
+        drift.append(gt)
+    seq = [frames[0]] + [syn.render_scene(mesh, gt, K, h, w) for gt in drift[1:]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose = reg_pose = model.register(rgb, depth, mask, "scan")
+    reg_ms = (time.perf_counter() - t0) * 1e3
+    adds = add_s(np, surface_points(np, final), reg_pose, gts[0])
+    errs, track_ms = [], []
+    for (rgb_i, depth_i, _), gt in zip(seq, drift):
+        t0 = time.perf_counter()
+        pose = model.track(rgb_i, depth_i, pose, "scan")
+        track_ms.append((time.perf_counter() - t0) * 1e3)
+        errs.append(rot_err_deg(np, pose, gt))
+    counts = counts_of(kernels)
+    log(f"scan register: ADD-S={adds * 1e3:.2f} mm (0.1 x diameter = {final.diameter * 100:.1f} "
+        f"mm, not gated) rot_err={rot_err_deg(np, reg_pose, gts[0]):.2f} "
+        f"deg register_ms={reg_ms:.2f}; track rot_err_deg: " + " ".join(f"{e:.2f}" for e in errs)
+        + " | track_ms: " + " ".join(f"{t:.2f}" for t in track_ms))
+    log(f"scan launches (packed attention, head-split attention, render, rasterize) = {counts}")
+    if not np.isfinite(pose).all() or counts[0] == 0 or counts[2] == 0 \
+            or counts[3] != len(frames) + len(seq) - 1:
+        raise AssertionError(f"scan path launches {counts}")
+    return dict(render=render_rows, raster=raster_rows, launches=counts)
+
+
+def run_multi_object(torch, np, fp, tproc, syn, transforms, render, sweep, kernels, K):
+    """Config 5 (multi-object tracking): 8 cubes on a 4x2 grid 0.15 m apart
+    at 0.8 m, each rendered by render_scene and composited by nearest depth
+    into one 480x640 frame; track_batch of the 8 from poses ~5 deg / 5 mm off
+    their own for 5 frames (K1 at B=8, K2 at N=8). Each instance against its
+    true pose (rotation modulo the cube's symmetries, translation) and
+    against track() of that instance alone. K2 is first held against its
+    plain version at N=8 on the cube."""
+    from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
+    from foundationpose_cpp_tpu_torch.utils import metrics
+
+    h, w, n = 480, 640, 8
+    cube = tproc.textured_cube(size=0.08)
+    render_rows = check_render(torch, transforms, render, sweep, [("cube", n, 160, cube)])
+    mesh = MeshConstants.from_asset(cube, "cuda")
+    rng = np.random.default_rng(8)
+    gts, rgb, depth = [], np.zeros((h, w, 3), np.uint8), np.zeros((h, w), np.float32)
+    for i in range(n):
+        gt = np.eye(4, dtype=np.float32)
+        gt[:3, :3] = syn.euler_xyz_deg(rng.uniform(-40, 40, 3))
+        gt[:3, 3] = [(i % 4 - 1.5) * 0.15, (i // 4 - 0.5) * 0.15, 0.8]
+        gts.append(gt)
+        rgb_i, depth_i, _ = syn.render_scene(mesh, gt, K, h, w)
+        nearer = (depth_i > 0) & ((depth == 0) | (depth_i < depth))
+        rgb[nearer], depth[nearer] = rgb_i[nearer], depth_i[nearer]
+    gts = np.stack(gts)
+    starts = gts.copy()
+    for i in range(n):
+        axis = rng.normal(size=3)
+        starts[i, :3, :3] = rotvec_matrix(np, axis, 5.0) @ gts[i, :3, :3]
+        d = rng.normal(size=3)
+        starts[i, :3, 3] += 0.005 * d / np.linalg.norm(d)
+    model = fp.create_foundationpose_model(
+        str(ROOT / "weights" / "refiner_multi_full.npz"),
+        str(ROOT / "weights" / "scorer_multi_full.npz"), [cube], K, h, w)
+    model.track_batch(rgb, depth, starts, "cube")  # warm-up: cuDNN plans at N=8
+    reset_counts(kernels)
+    poses, ms = starts, []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses = model.track_batch(rgb, depth, poses, "cube")
+        ms.append((time.perf_counter() - t0) * 1e3 / n)
+    counts = counts_of(kernels)
+    alone = []
+    for i in range(n):
+        pose = starts[i]
+        for _ in range(5):
+            pose = model.track(rgb, depth, pose, "cube")
+        alone.append(pose)
+    delta = float(np.abs(poses - np.stack(alone)).max())
+    rot = [metrics.rotation_error_deg_sym(p, g, cube.symmetries) for p, g in zip(poses, gts)]
+    trans = [float(np.linalg.norm(p[:3, 3] - g[:3, 3])) for p, g in zip(poses, gts)]
+    log(f"multi-object: {n} cubes, 5 track_batch frames: rot_err_deg (mod the cube's "
+        f"symmetries) " + " ".join(f"{r:.2f}" for r in rot) + " | t_err_mm "
+        + " ".join(f"{t * 1e3:.2f}" for t in trans)
+        + f"; max|d| vs track() of each alone={delta:.3e}; ms per object "
+        + " ".join(f"{m:.3f}" for m in ms) + f"; launches (packed attention, head-split "
+        f"attention, render, rasterize)={counts}")
+    if max(rot) >= 5.0 or max(trans) >= 0.01:
+        raise AssertionError(f"multi-object: rotation errors {rot}, translation errors {trans}")
+    if counts != (5, 0, 5, 0):
+        raise AssertionError(f"multi-object launched {counts}, want (5, 0, 5, 0)")
+    return dict(launches=counts, ms_per_object=ms, render=render_rows)
+
+
+def run_sync_free(torch, np, main):
+    """64 chained packed steps and a register_step on tensors already on the
+    card under torch.cuda.set_sync_debug_mode("error"): any operation that
+    waits for the card raises. The poses must equal the same calls' outside
+    the mode."""
+    from foundationpose_cpp_tpu_torch.pipeline import foundationpose as fpp
+
+    model, (rgb, depth, mask) = main["model"], main["frames"][0]
+    step = model.make_packed_tracker("house", (480, 640))
+    packed = torch.from_numpy(model.pack_frame(rgb, depth)).cuda()
+    frame = [torch.from_numpy(a).cuda() for a in (rgb, depth, mask)]
+    pose0 = torch.from_numpy(main["pose"]).cuda()
+
+    def run():
+        pose = pose0
+        for _ in range(64):
+            pose = step(packed, pose)
+        with torch.inference_mode():
+            best = fpp.register_step(model._meshes["house"], model._refiner, model._scorer,
+                                     *frame, model._rot_grid, model._K, 1, model._cfg)[0]
+        return pose, best
+
+    want = [t.cpu() for t in run()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        got = run()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    log(f"sync: 64 chained packed steps + register_step ran under set_sync_debug_mode('error'); "
+        f"host done queueing after {queued_ms:.2f} ms, card done after {total_ms:.2f} ms; poses "
+        f"equal to the same calls outside the mode: {same}")
+    if not same:
+        raise AssertionError("the calls under the sync debug mode gave other poses")
+
+
+def run_bench(np):
+    """foundationpose_cpp_tpu_torch.bench at its defaults: one JSON line with
+    the keys of bench.py, the h2d, memory and scan blocks filled."""
+    import ast
+
+    from foundationpose_cpp_tpu_torch import bench
+
+    result = bench.main([])
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    (literal,) = [n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                  and any(getattr(t, "id", None) == "result" for t in n.targets)]
+
+    def missing(node, got, prefix=""):
+        out = []
+        for key, value in zip(node.keys, node.values):
+            if key.value not in got:
+                out.append(prefix + key.value)
+            elif isinstance(value, ast.Dict):
+                out += missing(value, got[key.value], prefix + key.value + ".")
+        return out
+
+    d = result["details"]
+    lost = missing(literal, result)
+    if lost or d["platform"] != "gpu" or d["stage_ms"]["render_252_corner"] is not None \
+            or d["sharded"] is not None or not d["card"]:
+        raise AssertionError(f"bench line: keys of bench.py missing {lost}, or wrong nulls")
+    numbers = [result["value"], d["track_fps"], d["track_fps_percall"], d["track_fps_dispatch"],
+               d["track_fps_pipelined"], d["h2d"]["ms_per_frame"], d["hbm_peak_gb"],
+               *d["scan"].values(), d["stage_ms"]["render_252"]]
+    if not all(np.isfinite(v) and v > 0 for v in numbers):
+        raise AssertionError(f"bench line has numbers that are not finite and positive: {numbers}")
+    return result
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -900,23 +1202,39 @@ def main() -> int:
     log(f"  rasterize kernel: {rasterize_tiled.kernel_config()}")
 
     K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], np.float32)
-    attn_rows = check_attention(torch, attention)
-    head_rows = check_whole_head(torch, attention)
-    render_rows = check_render(torch, transforms, render, sweep)
-    raster_rows = check_rasterize(torch, transforms, rasterize_tiled, render, sweep)
-    launches = run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled, K)
+    def phase(name, fn, *args):
+        """Run one phase and print its wall time."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    attn_rows = phase("K1", check_attention, torch, attention)
+    head_rows = phase("K3", check_whole_head, torch, attention)
+    render_rows = phase("K2", check_render, torch, transforms, render, sweep)
+    raster_rows = phase("K4", check_rasterize, torch, transforms, rasterize_tiled, render, sweep)
+    launches = phase("main path", run_main_path, torch, np, fp, tproc, syn, attention, render,
+                     rasterize_tiled, K)
     # the serving paths around Track and Register, each with the counts of
     # (render, attention) set to 0 just before it and read just after
     serving = (render.render_views, attention.mha_packed_qkv)
-    run_buckets(torch, np, fp, serving, K, launches)
-    run_packed(torch, np, profiling, serving, launches)
-    run_async(torch, np, profiling, serving, launches)
-    run_infer_cores(torch, np, fp, serving, launches)
+    phase("buckets", run_buckets, torch, np, fp, serving, K, launches)
+    phase("packed", run_packed, torch, np, profiling, serving, launches)
+    phase("async", run_async, torch, np, profiling, serving, launches)
+    phase("infer cores", run_infer_cores, torch, np, fp, serving, launches)
     counted = (attention.mha_packed_qkv, attention.mha_whole_head, render.render_views,
                rasterize_tiled.rasterize_tiled)
     with tempfile.TemporaryDirectory() as tmp:
-        run_dataset_full_width(torch, np, tproc, syn, counted, K, pathlib.Path(tmp))
-        narrow = run_dataset_narrow(torch, np, syn, counted, pathlib.Path(tmp))
+        phase("dataset full width", run_dataset_full_width, torch, np, tproc, syn, counted, K,
+              pathlib.Path(tmp))
+        narrow = phase("dataset narrow", run_dataset_narrow, torch, np, syn, counted,
+                       pathlib.Path(tmp))
+        phase("scan", run_scan, torch, np, fp, tproc, syn, transforms, render, rasterize_tiled,
+              sweep, counted, K, pathlib.Path(tmp))
+    phase("multi-object", run_multi_object, torch, np, fp, tproc, syn, transforms, render, sweep,
+          counted, K)
+    phase("sync", run_sync_free, torch, np, launches)
+    phase("bench", run_bench, np)
 
     def row(r):
         return {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -7,8 +7,10 @@ and textured meshes. Its two hand-written CUDA kernels (``csrc/``) take the
 place of the JAX package's Pallas kernels on the main path: the render
 branch and the packed-qkv attention. Around them: size buckets, the
 packed-frame tracker and the async tracker over a native frame ring
-(``pipeline/``, ``native/``), and the named-blob inference cores
-(``create_refiner_core``, ``create_scorer_core``). Entry points run on the
+(``pipeline/``, ``native/``), the named-blob inference cores
+(``create_refiner_core``, ``create_scorer_core``), the scanned-mesh ingest
+(native PLY/OBJ parsers, decimation, adaptive subdivision: ``meshio/``),
+the demos and the bench (``bench.py``). Entry points run on the
 card unless the caller passes ``device="cpu"``. Nothing here imports JAX.
 
 TF32 is switched off for matmuls and cuDNN convolutions: geometry and

@@ -14,16 +14,34 @@ Everything is batched over the leading hypothesis axis N and stays in f32 on
 the caller's device. The package turns TF32 off (see ``__init__``): the crop
 window rounding and the clip-space vertices move under TF32, which is why the
 JAX package pins ``Precision.HIGHEST`` for the same products.
+
+The constant tensors these functions combine with their inputs are built
+from Python floats once per (values, device) by ``_constant`` and kept, so
+a call only launches work on tensors already on the device: building one
+from a Python list on the card is a blocking copy that drains the stream.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=256)
+def _constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """f32 tensor of the nested tuple ``values`` on ``device``, built on the
+    first call for these values and device and returned from then on. Built
+    outside inference mode, so it serves autograd-recording callers too;
+    callers never write to it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def _gl_cam_in_cv_cam(device) -> torch.Tensor:
     """CV camera -> GL camera: flips y and z (foundationpose_render.cpp:22-23)."""
-    return torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0], device=device))
+    return _constant(((1.0, 0.0, 0.0, 0.0), (0.0, -1.0, 0.0, 0.0), (0.0, 0.0, -1.0, 0.0),
+                      (0.0, 0.0, 0.0, 1.0)), torch.device(device))
 
 
 def projection_from_intrinsics(
@@ -45,9 +63,8 @@ def projection_from_intrinsics(
     z = torch.zeros((), dtype=torch.float32, device=K.device)
     row0 = torch.stack([2 * K[0, 0] / w, -2 * K[0, 1] / w, (-2 * K[0, 2] + w) / w, z])
     row1 = torch.stack([z, 2 * K[1, 1] / h, (2 * K[1, 2] - h) / h, z])
-    row2 = torch.tensor([0.0, 0.0, q, qn], dtype=torch.float32, device=K.device)
-    row3 = torch.tensor([0.0, 0.0, -1.0, 0.0], dtype=torch.float32, device=K.device)
-    return torch.stack([row0, row1, row2, row3])
+    rows23 = _constant(((0.0, 0.0, q, qn), (0.0, 0.0, -1.0, 0.0)), K.device)
+    return torch.cat([torch.stack([row0, row1]), rows23])
 
 
 def _round_away(x: torch.Tensor) -> torch.Tensor:
@@ -73,9 +90,9 @@ def compute_crop_window_tf(
     """
     out_h, out_w = out_hw
     r = mesh_diameter * crop_ratio / 2.0
-    offsets = torch.tensor(
-        [[0, 0, 0], [r, 0, 0], [-r, 0, 0], [0, r, 0], [0, -r, 0]],
-        dtype=torch.float32, device=poses.device,
+    offsets = _constant(
+        ((0.0, 0.0, 0.0), (r, 0.0, 0.0), (-r, 0.0, 0.0), (0.0, r, 0.0), (0.0, -r, 0.0)),
+        poses.device,
     )  # (5, 3)
     centers = poses[:, :3, 3]  # (N, 3)
     pts = centers[:, None, :] + offsets[None, :, :]  # (N, 5, 3)
@@ -136,10 +153,7 @@ def construct_bbox2d(tfs: torch.Tensor, crop_h: int, crop_w: int) -> torch.Tenso
     (W-1,H-1).
     """
     inv = invert_affine3(tfs)
-    corners = torch.tensor(
-        [[0.0, 0.0, 1.0], [crop_w - 1.0, crop_h - 1.0, 1.0]],
-        dtype=torch.float32, device=tfs.device,
-    )
+    corners = _constant(((0.0, 0.0, 1.0), (crop_w - 1.0, crop_h - 1.0, 1.0)), tfs.device)
     mapped = torch.einsum("nij,cj->nci", inv, corners)  # (N, 2, 3)
     return torch.cat([mapped[:, 0, :2], mapped[:, 1, :2]], dim=-1)
 

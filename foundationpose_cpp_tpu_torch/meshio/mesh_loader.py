@@ -19,9 +19,13 @@ reproduced:
   opt-in `allow_missing_uv` that synthesizes zeros + gray texture as a
   documented extension beyond the reference
 
-A copy of ``foundationpose_cpp_tpu.meshio.mesh_loader`` without its native
-C++ fast paths: the pure-Python parsers and the scipy diameter are the
-reference implementation there and the only one here.
+A copy of ``foundationpose_cpp_tpu.meshio.mesh_loader`` with its C++ fast
+paths (``native/csrc/mesh.cpp``, built by g++ on first use): OBJ and PLY
+files go through the native parsers, which return None on what they do not
+take (a big-endian PLY, list-typed vertex properties), and the loader then
+uses the Python parsers here, as the JAX loader does; the diameter's
+pairwise maximum over the hull runs in C++ for f32 positions. Unlike the
+JAX loader, a failed build raises instead of falling back.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import pathlib
 
 import numpy as np
 
+from foundationpose_cpp_tpu_torch import native
 from foundationpose_cpp_tpu_torch.utils import png
 
 GRAY_FALLBACK_RGB = (100, 100, 100)
@@ -87,8 +92,13 @@ def mesh_diameter(vertices: np.ndarray) -> float:
         hull_pts = pts[np.unique(ConvexHull(pts, qhull_options="QJ").vertices)]
     except Exception:  # degenerate (planar/collinear) meshes
         hull_pts = pts
-    # Blockwise exact pairwise max via scipy's C cdist; small blocks keep
-    # the f64 temporaries of a large scan hull bounded.
+    # Exact pairwise max over the hull. f32 positions (every loaded and
+    # procedural asset) take the threaded C++ sweep, f64 distances over the
+    # same f32 coordinates, as the JAX loader does (mesh_loader.py:89-101).
+    if np.asarray(vertices).dtype == np.float32:
+        return native.diameter_exact_native(hull_pts.astype(np.float32))
+    # Otherwise blockwise via scipy's C cdist; small blocks keep the f64
+    # temporaries of a large scan hull bounded.
     from scipy.spatial.distance import cdist
 
     d = 0.0
@@ -381,9 +391,17 @@ def load_mesh(
         raise FileNotFoundError(f"[MeshLoader] mesh file not found: {mesh_path}")
     suffix = path.suffix.lower()
     if suffix == ".obj":
-        pos, uv, nrm, faces, tex_from_mtl = _parse_obj(path)
+        # C++ fast path (native/csrc/mesh.cpp); same dedup semantics
+        parsed = native.parse_obj_native(str(path)) or _parse_obj(path)
+        pos, uv, nrm, faces, tex_from_mtl = parsed
     elif suffix == ".ply":
-        pos, uv, nrm, faces, tex_from_mtl = _parse_ply(path)
+        parsed = native.parse_ply_native(str(path))
+        if parsed is not None:
+            pos, uv, nrm, faces, tex_from_mtl = parsed
+            if tex_from_mtl and not pathlib.Path(tex_from_mtl).exists():
+                tex_from_mtl = None  # match _parse_ply's existence gate
+        else:
+            pos, uv, nrm, faces, tex_from_mtl = _parse_ply(path)
     else:
         raise ValueError(f"[MeshLoader] unsupported mesh format: {suffix}")
 

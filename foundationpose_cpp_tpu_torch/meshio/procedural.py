@@ -1,9 +1,9 @@
-"""Procedural test meshes (textured cube / house / UV-sphere) and an OBJ
-writer.
+"""Procedural test meshes (textured cube / house / UV-sphere / scanned
+blob) and OBJ and PLY writers.
 
-A copy of the four generators and ``write_obj`` of
+A copy of the generators, ``write_obj`` and ``write_ply`` of
 ``foundationpose_cpp_tpu.meshio.procedural`` that the port's tests, the
-dataset writer and the smoke run need; the texture PNG goes through
+dataset writer, the bench and the smoke run need; texture PNGs go through
 ``utils/png.py``.
 
 The reference validates against the mustard0 dataset, which is a gated
@@ -14,13 +14,17 @@ and benchmarks deterministic, self-contained geometry with the same structure
 
 from __future__ import annotations
 
-import itertools
 import math
 import pathlib
 
 import numpy as np
 
-from foundationpose_cpp_tpu_torch.meshio.mesh_loader import MeshAsset, make_mesh_asset
+from foundationpose_cpp_tpu_torch.geometry import symmetry
+from foundationpose_cpp_tpu_torch.meshio.mesh_loader import (
+    MeshAsset,
+    compute_vertex_normals,
+    make_mesh_asset,
+)
 from foundationpose_cpp_tpu_torch.utils import png
 
 
@@ -33,22 +37,6 @@ def checkerboard_texture(size: int = 64, squares: int = 8) -> np.ndarray:
         [0.2 + 0.7 * check, 0.5 - 0.3 * check, 0.3 + 0.4 * (1 - check)], axis=-1
     )
     return tex.astype(np.float32)
-
-
-def cube_rotation_group() -> np.ndarray:
-    """The 24 proper rotations of a cube as (24, 4, 4) object-frame
-    transforms (``foundationpose_cpp_tpu.geometry.symmetry.box()``)."""
-    out = []
-    for perm in itertools.permutations(range(3)):
-        for signs in itertools.product((1.0, -1.0), repeat=3):
-            r = np.zeros((3, 3))
-            for row, (col, s) in enumerate(zip(perm, signs)):
-                r[row, col] = s
-            if np.linalg.det(r) > 0:
-                m = np.eye(4)
-                m[:3, :3] = r
-                out.append(m)
-    return np.stack(out).astype(np.float32)
 
 
 def textured_cube(name: str = "cube", size: float = 0.1) -> MeshAsset:
@@ -93,7 +81,7 @@ def textured_cube(name: str = "cube", size: float = 0.1) -> MeshAsset:
         np.asarray(uvs, np.float32),
         np.asarray(normals, np.float32),
         checkerboard_texture(),
-        symmetries=cube_rotation_group(),
+        symmetries=symmetry.box(),
     )
 
 
@@ -276,6 +264,82 @@ def textured_uv_sphere(
     )
 
 
+def scanned_blob(
+    name: str = "scan",
+    seed: int = 0,
+    radius: float = 0.05,
+    n_lat: int = 230,
+    n_lon: int = 230,
+    tex_size: int = 512,
+) -> MeshAsset:
+    """Dense scanned-object stand-in: >=100k-face bumpy blob, 512^2 sharp
+    texture (BundleSDF-style reconstruction output,
+    reference docs/gen_3d_obj_with_bundlesdf.md). Fully vectorized -- a
+    105k-face mesh builds in ~100 ms.
+
+    The radial field mixes several spherical-harmonic-ish frequencies (the
+    lumpy low-poly shape of a fused TSDF) and the texture combines smooth
+    color patches with a fine checker + speckle layer (the baked-in camera
+    texture detail that makes per-pixel texturing matter).
+    """
+    rng = np.random.default_rng(seed)
+    la = np.linspace(0.0, np.pi, n_lat + 1)
+    lo = np.linspace(0.0, 2 * np.pi, n_lon + 1)
+    LA, LO = np.meshgrid(la, lo, indexing="ij")  # (n_lat+1, n_lon+1)
+    nx = np.sin(LA) * np.cos(LO)
+    ny = np.sin(LA) * np.sin(LO)
+    nz = np.cos(LA)
+    # low-frequency lumps: random cosine bumps in direction space
+    r = np.ones_like(LA)
+    for _ in range(6):
+        d = rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        dot = nx * d[0] + ny * d[1] + nz * d[2]
+        r += rng.uniform(0.05, 0.18) * np.cos(
+            rng.uniform(2.0, 5.0) * np.arccos(np.clip(dot, -1, 1))
+        )
+    # seam consistency: duplicate column must carry identical radii
+    r[:, -1] = r[:, 0]
+    verts = (radius * r)[..., None] * np.stack([nx, ny, nz], axis=-1)
+    uvs = np.stack(
+        [LO / (2 * np.pi), LA / np.pi], axis=-1
+    ).reshape(-1, 2).astype(np.float32)
+    verts = verts.reshape(-1, 3).astype(np.float32)
+
+    stride = n_lon + 1
+    i = np.arange(n_lat)[:, None]
+    j = np.arange(n_lon)[None, :]
+    a = i * stride + j
+    b = a + 1
+    c = a + stride
+    d = c + 1
+    up = np.stack([a, c, b], axis=-1)[1:]  # skip degenerate pole row
+    dn = np.stack([b, c, d], axis=-1)[:-1]
+    faces = np.concatenate([up.reshape(-1, 3), dn.reshape(-1, 3)]).astype(
+        np.int32
+    )
+
+    normals = compute_vertex_normals(verts, faces)
+
+    # texture: smooth blotches + fine checker + speckle
+    ys, xs = np.mgrid[0:tex_size, 0:tex_size] / tex_size
+    tex = np.stack(
+        [
+            0.45 + 0.25 * np.sin(2 * np.pi * (2 * xs + ys)),
+            0.45 + 0.25 * np.sin(2 * np.pi * (xs - 2 * ys) + 1.3),
+            0.5 + 0.2 * np.sin(2 * np.pi * (3 * xs * ys) + 2.1),
+        ],
+        axis=-1,
+    )
+    checker = ((xs * 64).astype(int) + (ys * 64).astype(int)) % 2
+    tex *= 0.75 + 0.25 * checker[..., None]
+    tex += rng.uniform(-0.06, 0.06, tex.shape)
+    return make_mesh_asset(
+        name, verts, faces, uvs, normals,
+        np.clip(tex, 0.0, 1.0).astype(np.float32),
+    )
+
+
 def write_obj(asset: MeshAsset, path: str, texture_path: str | None = None) -> None:
     """Write an asset as OBJ, plus an MTL file and a PNG texture when
     ``texture_path`` is given (procedural.py:336-365)."""
@@ -300,3 +364,50 @@ def write_obj(asset: MeshAsset, path: str, texture_path: str | None = None) -> N
         lines.append("f " + " ".join(f"{i + 1}/{i + 1}/{i + 1}" for i in f))
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+def write_ply(
+    asset: MeshAsset,
+    path: str,
+    texture_path: str | None = None,
+    binary: bool = True,
+    with_normals: bool = True,
+    with_uvs: bool = True,
+) -> None:
+    """Write an asset as PLY (ascii or binary_little_endian), plus a PNG
+    texture named in a ``comment TextureFile`` line when ``texture_path`` is
+    given (procedural.py:368-426): BundleSDF reconstructions arrive as PLY
+    (reference test_data/download.md mesh layout)."""
+    v = np.asarray(asset.vertices, np.float32)
+    n = np.asarray(asset.vertex_normals, np.float32)
+    t = np.asarray(asset.texcoords, np.float32)
+    f = np.asarray(asset.faces, np.int32)
+    header = ["ply", "format binary_little_endian 1.0" if binary else "format ascii 1.0"]
+    if texture_path is not None:
+        png.write_png(texture_path, (asset.texture * 255).astype(np.uint8))
+        header.append(f"comment TextureFile {pathlib.Path(texture_path).name}")
+    header.append(f"element vertex {v.shape[0]}")
+    header += ["property float x", "property float y", "property float z"]
+    if with_normals:
+        header += ["property float nx", "property float ny", "property float nz"]
+    if with_uvs:
+        header += ["property float u", "property float v"]
+    header.append(f"element face {f.shape[0]}")
+    header.append("property list uchar int vertex_indices")
+    header.append("end_header")
+    cols = [v] + ([n] if with_normals else []) + ([t] if with_uvs else [])
+    rec = np.concatenate(cols, axis=1).astype("<f4")
+    with open(path, "wb") as fh:
+        fh.write(("\n".join(header) + "\n").encode("ascii"))
+        if binary:
+            fh.write(rec.tobytes())
+            # one record per face: a uint8 count of 3, then three int32 indices
+            face_rec = np.empty(f.shape[0], dtype=[("n", "u1"), ("idx", "<i4", (3,))])
+            face_rec["n"] = 3
+            face_rec["idx"] = f
+            fh.write(face_rec.tobytes())
+        else:
+            for row in rec:
+                fh.write((" ".join(repr(float(x)) for x in row) + "\n").encode())
+            for face in f:
+                fh.write(f"3 {face[0]} {face[1]} {face[2]}\n".encode())

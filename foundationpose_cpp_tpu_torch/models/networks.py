@@ -279,3 +279,26 @@ class ScoreNet(_Backbone):
     cfg.cross_attention)."""
 
     head_dims = SCORER_HEADS
+
+
+def count_params(net: nn.Module) -> int:
+    """Number of parameter values in ``net`` (the position table included,
+    as in the JAX parameter tree)."""
+    return sum(p.numel() for p in net.parameters())
+
+
+def flops_per_pair(cfg: NetConfig = NetConfig()) -> int:
+    """Multiply-accumulates per hypothesis pair of the backbone: the two
+    siamese encodes, the joint encode and the encoder layers (the JAX
+    package's ``flops_per_pair``, which the bench reports beside its times)."""
+    s1 = cfg.crop_hw // 2  # after conv0
+    s2 = cfg.crop_hw // 4  # after conv1 / res
+    s3 = cfg.crop_hw // 8  # after the encodeAB conv
+    c1, c2, d = cfg.width1, cfg.width2, cfg.embed_dim
+    t = cfg.num_tokens
+    enc_a = (s1 * s1 * c1 * 49 * cfg.in_channels + s2 * s2 * c2 * 9 * c1
+             + 2 * s2 * s2 * c2 * 9 * c2) * 2  # two crops
+    enc_ab = (2 * s2 * s2 * (2 * c2) * 9 * (2 * c2) + s3 * s3 * d * 9 * (2 * c2)
+              + 2 * s3 * s3 * d * 9 * d)
+    xf = cfg.num_encoder_layers * (4 * t * d * d + 2 * t * t * d + 2 * t * d * cfg.ffn_dim)
+    return enc_a + enc_ab + xf

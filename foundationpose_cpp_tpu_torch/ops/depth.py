@@ -27,7 +27,7 @@ def _shifted(img: torch.Tensor, dy: int, dx: int) -> tuple[torch.Tensor, torch.T
     xs_src = slice(max(dx, 0), w + min(dx, 0))
     xs_dst = slice(max(-dx, 0), w + min(-dx, 0))
     shifted[ys_dst, xs_dst] = img[ys_src, xs_src]
-    mask[ys_dst, xs_dst] = True
+    mask[ys_dst, xs_dst].fill_(True)  # a Python scalar assigned would become a tensor first
     return shifted, mask
 
 
@@ -164,9 +164,13 @@ def guess_translation(
     sorted_d = torch.sort(flat).values
     i1 = torch.clamp(torch.div(n_valid - 1, 2, rounding_mode="floor"), min=0)
     i2 = torch.clamp(torch.div(n_valid, 2, rounding_mode="floor"), min=0)
-    zc = (sorted_d[i1] + sorted_d[i2]) / 2.0
+    # gathered, not indexed: a 0-d index tensor would be read on the host
+    mid = torch.gather(sorted_d, 0, torch.stack([i1, i2]))
+    zc = (mid[0] + mid[1]) / 2.0
 
     uv1 = torch.stack([uc, vc, torch.ones((), device=depth.device)])
-    center = torch.linalg.solve(K, uv1) * zc
+    # solve_ex leaves the LAPACK/cuSOLVER error code on the device (solve
+    # reads it back); K is a camera matrix, never singular
+    center = torch.linalg.solve_ex(K, uv1, check_errors=False)[0] * zc
     ok = any_mask & (n_valid > 0)
     return torch.where(ok, center, torch.zeros_like(center)), ok

@@ -146,7 +146,9 @@ def register_step(
         mesh, refiner, scorer, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw
     )
     best = torch.argmax(scores)  # getMaxScoreIndex (thrust) equivalent
-    best_pose = torch.where(ok, poses[best], torch.full_like(poses[best], float("nan")))
+    # index_select keeps the index on the device (poses[best] reads it back)
+    pose = poses.index_select(0, best.reshape(1))[0]
+    best_pose = torch.where(ok, pose, torch.full_like(pose, float("nan")))
     return best_pose, poses, scores, ok
 
 

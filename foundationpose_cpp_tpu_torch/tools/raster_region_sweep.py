@@ -59,9 +59,10 @@ def mesh_asset(name: str):
     raise ValueError(f"unknown mesh {name!r}")
 
 
-def render_case(name: str, n: int, crop: int, device="cuda"):
+def render_case(name: str, n: int, crop: int, device="cuda", asset=None):
     """The arguments of ``render_views`` for the first n poses of the
-    Register rotation grid at 0.6 m, cropped as Register crops them."""
+    Register rotation grid at 0.6 m, cropped as Register crops them; of the
+    mesh ``name`` or of ``asset`` when one is given."""
     import numpy as np
     import torch
 
@@ -71,7 +72,7 @@ def render_case(name: str, n: int, crop: int, device="cuda"):
     from foundationpose_cpp_tpu_torch.utils import synthetic
 
     cfg = FoundationPoseConfig()
-    mesh = MeshConstants.from_asset(mesh_asset(name), device)
+    mesh = MeshConstants.from_asset(asset or mesh_asset(name), device)
     poses = torch.as_tensor(icosphere.make_rotation_grid()[:n], device=device).clone()
     poses[:, :3, 3] = torch.as_tensor(synthetic.default_pose(0.6)[:3, 3], device=device)
     K = torch.as_tensor(np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], np.float32),
@@ -85,9 +86,10 @@ def render_case(name: str, n: int, crop: int, device="cuda"):
             cfg.max_depth, cfg.w_ambient, cfg.w_diffuse)
 
 
-def raster_case(name: str, n: int, h: int, w: int, device="cuda"):
-    """(clip, faces, h, w, face_valid) of n views of a mesh at 0.6 m, turned
-    by 25 degrees a view, with the whole frame as the window."""
+def raster_case(name: str, n: int, h: int, w: int, device="cuda", asset=None):
+    """(clip, faces, h, w, face_valid) of n views of the mesh ``name`` (or of
+    ``asset``) at 0.6 m, turned by 25 degrees a view, with the whole frame as
+    the window."""
     import numpy as np
     import torch
 
@@ -95,7 +97,7 @@ def raster_case(name: str, n: int, h: int, w: int, device="cuda"):
     from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
     from foundationpose_cpp_tpu_torch.utils import synthetic
 
-    mesh = MeshConstants.from_asset(mesh_asset(name), device)
+    mesh = MeshConstants.from_asset(asset or mesh_asset(name), device)
     K = torch.tensor([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], device=device)
     K[0] *= w / 640.0  # the same field of view at any size
     K[1] *= h / 480.0

@@ -42,6 +42,30 @@ def rotation_error_deg(pose_est: np.ndarray, pose_gt: np.ndarray) -> float:
     return float(np.degrees(np.arccos(cos)))
 
 
+def rotation_error_deg_sym(
+    pose_est: np.ndarray,
+    pose_gt: np.ndarray,
+    symmetries: np.ndarray | None,
+) -> float:
+    """Geodesic rotation error modulo an object's declared symmetry set.
+
+    symmetries: (S, 4, 4) object-frame transforms (MeshAsset.symmetries /
+    geometry.symmetry); a pose and pose @ S are equivalent, matching the
+    reference's ClusterPoses right-multiplication
+    (foundationpose_sampling.cpp:152-162: ``cur_pose * tf``). None or an
+    identity-only set reduces to rotation_error_deg.
+    """
+    if symmetries is None:
+        return rotation_error_deg(pose_est, pose_gt)
+    best = np.inf
+    for s in np.asarray(symmetries):
+        equiv = pose_gt[:3, :3] @ s[:3, :3]
+        r = pose_est[:3, :3] @ equiv.T
+        cos = np.clip((np.trace(r) - 1.0) / 2.0, -1.0, 1.0)
+        best = min(best, float(np.degrees(np.arccos(cos))))
+    return best
+
+
 def translation_error(pose_est: np.ndarray, pose_gt: np.ndarray) -> float:
     return float(np.linalg.norm(pose_est[:3, 3] - pose_gt[:3, 3]))
 

@@ -119,6 +119,19 @@ def _random_clip(n, v, seed, card):
     return torch.as_tensor(np.concatenate([xy, z, w], axis=-1), dtype=torch.float32, device=card)
 
 
+def _small_scan(raw=False):
+    """A 3,120-face scanned blob (raw), or the same decimated and subdivided
+    as the scanned-mesh chain does (texel-patch metric)."""
+    from foundationpose_cpp_tpu_torch.meshio.decimate import decimate_vertex_clustering
+    from foundationpose_cpp_tpu_torch.meshio.subdivide import subdivide_adaptive
+
+    blob = procedural.scanned_blob(seed=3, n_lat=40, n_lon=40, tex_size=64)
+    if raw:
+        return blob
+    return subdivide_adaptive(decimate_vertex_clustering(blob, target_faces=1_500),
+                              max_faces=4_096, patch_k=4)[0]
+
+
 def _scene_clip(asset, h, w, card, n=1):
     mesh = MeshConstants.from_asset(asset, card)
     K = torch.tensor([[600.0 * w / 640, 0, w / 2], [0, 600.0 * h / 480, h / 2], [0, 0, 1]],
@@ -134,7 +147,8 @@ def _scene_clip(asset, h, w, card, n=1):
 
 @pytest.mark.parametrize("case", ["house_480x640", "sphere_480x640", "random_n4_120x160",
                                   "random_37x53", "behind_camera", "house_n2_123x157",
-                                  "cube_160x160", "planted_ties", "one_view_behind_camera"])
+                                  "cube_160x160", "planted_ties", "one_view_behind_camera",
+                                  "scan_480x640"])
 def test_rasterize_kernel_matches_plain(card, case):
     """Large faces (house, cube) and small ones (sphere), N = 1 and more,
     ragged sizes, faces and a whole view behind the camera, planted copies of
@@ -150,6 +164,8 @@ def test_rasterize_kernel_matches_plain(card, case):
         (clip, faces, valid), h, w = _scene_clip(sphere, 480, 640, card), 480, 640
     elif case == "house_n2_123x157":
         (clip, faces, valid), h, w = _scene_clip(procedural.textured_house(), 123, 157, card, n=2), 123, 157
+    elif case == "scan_480x640":
+        (clip, faces, valid), h, w = _scene_clip(_small_scan(raw=True), 480, 640, card), 480, 640
     elif case == "cube_160x160":
         (clip, faces, valid), h, w = _scene_clip(procedural.textured_cube(size=0.1), 160, 160, card), 160, 160
     else:
@@ -324,17 +340,20 @@ def _render_args(mesh, ch, cw, n, card, tz=0.45):
                                           ("sphere", 160, 160, 6), ("cube", 160, 160, 6),
                                           ("house", 123, 157, 3), ("sphere", 160, 160, 1),
                                           ("house", 160, 160, 140), ("cube", 200, 176, 40),
-                                          ("planted_ties", 64, 64, 3)])
+                                          ("planted_ties", 64, 64, 3), ("scan", 160, 160, 6),
+                                          ("scan", 160, 160, 1)])
 def test_render_kernel_matches_plain(card, name, ch, cw, n):
     """Large faces (cube, house) and small ones (sphere), one view (the
     32x32 regions of a launch with few blocks) and 140 (whole-crop regions),
-    a ragged crop, a crop of four ragged 160x160 regions, faces planted twice; and on plane coefficients handed in
+    a ragged crop, a crop of four ragged 160x160 regions, faces planted twice, a
+    decimated and subdivided scan; and on plane coefficients handed in
     from edge_coefficients, where no pixel may be off."""
     asset = {
         "cube": lambda: procedural.textured_cube(size=0.1),
         "house": lambda: procedural.textured_house(size=0.1),
         "planted_ties": lambda: procedural.textured_house(size=0.1),
         "sphere": lambda: procedural.textured_uv_sphere(radius=0.05, n_lat=24, n_lon=32),
+        "scan": _small_scan,
     }[name]()
     mesh = MeshConstants.from_asset(asset, card)
     args = _render_args(mesh, ch, cw, n, card)
@@ -372,3 +391,36 @@ def test_render_kernel_view_behind_the_camera_is_zero(card):
     assert (got[1] == 0).all() and (want[1] == 0).all()
     assert ((got - want).abs().amax(dim=-1) > 2e-3).float().mean().item() < 0.01
     assert (got[0].abs().sum(-1) > 0).any() and (got[2].abs().sum(-1) > 0).any()
+
+
+def test_track_and_register_never_wait_for_the_card(card):
+    """64 chained packed steps and a register_step on tensors already on the
+    card run under set_sync_debug_mode("error"): nothing in them waits for
+    the card, so the host queues ahead of it. Their poses equal those of the
+    same calls run outside the mode."""
+    from foundationpose_cpp_tpu_torch.pipeline import foundationpose as fpp
+
+    model, gt, rgb, depth, mask = _house_model(card)
+    step = model.make_packed_tracker("house", (480, 640))
+    packed = torch.from_numpy(model.pack_frame(rgb, depth)).to(card)
+    frame = [torch.from_numpy(a).to(card) for a in (rgb, depth, mask)]
+    pose0 = torch.from_numpy(gt).to(card)
+
+    def run():
+        pose = pose0
+        for _ in range(64):
+            pose = step(packed, pose)
+        with torch.inference_mode():
+            best = fpp.register_step(model._meshes["house"], model._refiner, model._scorer,
+                                     *frame, model._rot_grid, model._K, 1, model._cfg)[0]
+        return pose, best
+
+    want = [t.cpu() for t in run()]  # the first calls build the kernels and constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

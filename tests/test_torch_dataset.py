@@ -30,6 +30,7 @@ from foundationpose_cpp_tpu.utils import synthetic as jsyn
 from foundationpose_cpp_tpu.utils import viz as jviz
 from foundationpose_cpp_tpu_torch import FoundationPoseConfig
 from foundationpose_cpp_tpu_torch.demo_dataset import run_dataset
+from foundationpose_cpp_tpu_torch.geometry import symmetry as tsym
 from foundationpose_cpp_tpu_torch.meshio import procedural as tproc
 from foundationpose_cpp_tpu_torch.models import convert_jax
 from foundationpose_cpp_tpu_torch.ops import rasterize_tiled as rt
@@ -86,7 +87,7 @@ def test_run_dataset_matches_jax(datasets, tmp_path):
     assert got["frames"] == want["frames"] == 3 and got["gt_frames"] == 3
     assert got["register_frame"] == want["register_frame"]
     assert json.loads((tmp_path / "t" / "summary.json").read_text()).keys() == want.keys()
-    sym = tproc.cube_rotation_group().astype(np.float64)
+    sym = tsym.box().astype(np.float64)
     for i in range(3):
         t_pose = np.loadtxt(tmp_path / "t" / f"pose_{i:06d}.txt")
         j_pose = np.loadtxt(tmp_path / "j" / f"pose_{i:06d}.txt")
