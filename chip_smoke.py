@@ -32,7 +32,14 @@ it and read just after:
 - 64 chained packed steps and a Register under
   ``torch.cuda.set_sync_debug_mode("error")``;
 - the port bench (``foundationpose_cpp_tpu_torch.bench``), whose JSON line
-  it prints.
+  it prints;
+- model ingest: the published-structure refiner and scorer at the published
+  widths with seeded weights, converted with no JAX, held against their own
+  forward on 252 crop pairs in f32 and bf16, saved, reloaded and served;
+- the trainers on a bank of 4 family objects: one batch and its gradients
+  on the card against the CPU, 60 refiner and 20 scorer steps from scratch
+  (K2 twice a step, no attention kernel), the committed weights evaluated,
+  the trained refiner saved as bf16 and served.
 
 It checks that each path went through its kernels and found the object.
 Prints the card, a ``{"kernels": [...]}`` line and, last, the device line.
@@ -1163,6 +1170,240 @@ def run_bench(np):
     return result
 
 
+INGEST_F32_TOL = (1e-3, 1e-4)  # rtol, atol: tests/test_torch_networks.py at full width
+INGEST_BF16_TOL = (0.1, 0.05)  # rtol, atol: tests/test_onnx_roundtrip.py's bf16 policy bound
+GRAD_REL_L2 = 1e-3
+
+
+def randomize_published(torch, model, seed: int) -> None:
+    """Trained-checkpoint stand-in (tests/test_onnx_roundtrip.py:_randomize):
+    every tensor non-trivial and distinct, BN variances in [0.2, 2.2], the
+    position table left sinusoidal."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if "num_batches" in k or "pos_embed" in k:
+                continue
+            if "running_var" in k:
+                v.copy_(torch.rand(v.shape, generator=g) * 2 + 0.2)
+            else:
+                v.copy_(torch.randn(v.shape, generator=g) * 0.1)
+
+
+def run_ingest(torch, np, fp, attention, render, K, main, tmp):
+    """Published-structure refiner and scorer (BatchNorm, nn.MultiheadAttention,
+    NVlabs names) at the published widths with seeded weights, converted by
+    the strict converter with no JAX; on 252 seeded crop pairs the f32
+    converted nets (K1's f32 path) and the bf16 ones against the modules' own
+    f32 forward on the card; saved through save_params, reloaded through
+    create_foundationpose_model, one Register on the house scene."""
+    from foundationpose_cpp_tpu_torch.models import convert, convert_jax, networks, torch_ref
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 comparisons below assume it off")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    a = torch.rand((252, 160, 160, 6), generator=gen, device=dev)
+    b = torch.rand((252, 160, 160, 6), generator=gen, device=dev)
+    sds, rows = {}, []
+    for kind, seed in (("refiner", 11), ("scorer", 12)):
+        cfg = networks.NetConfig(cross_attention=kind == "scorer")
+        model = (torch_ref.build_refine_net(cfg) if kind == "refiner"
+                 else torch_ref.build_score_net(cfg))
+        randomize_published(torch, model, seed)
+        t0 = time.perf_counter()
+        sd, got_cfg = convert.convert_state_dict(torch_ref.state_dict_numpy(model), kind)
+        convert_ms = (time.perf_counter() - t0) * 1e3
+        if got_cfg != cfg:
+            raise AssertionError(f"inferred {got_cfg}, want {cfg}")
+        sds[kind] = sd
+        model = model.to(dev)
+        names = ("trans", "rot") if kind == "refiner" else ("scores",)
+        with torch.no_grad():
+            want = model(a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2))
+            want = dict(zip(names, want if isinstance(want, tuple) else (want,)))
+        for dtype, (rtol, atol) in ((torch.float32, INGEST_F32_TOL),
+                                    (torch.bfloat16, INGEST_BF16_TOL)):
+            net = convert_jax.as_net(sd, kind, dev, dtype)
+            before = attention.mha_packed_qkv.launches
+            with torch.inference_mode():
+                out = net(a, b)
+            launched = attention.mha_packed_qkv.launches - before
+            for name in names:
+                w, g = want[name].float(), out[name].float()
+                excess = ((g - w).abs() / (atol + rtol * w.abs())).max().item()
+                err = (g - w).abs().max().item()
+                log(f"ingest {kind} {str(dtype)[6:]} N=252: {name} max_abs_err={err:.3e} "
+                    f"(|{name}| up to {w.abs().max().item():.3f}) err/tol={excess:.3f} at rtol "
+                    f"{rtol} atol {atol}; K1 launches {launched}; convert {convert_ms:.0f} ms")
+                if not (excess <= 1.0 and torch.isfinite(g).all()):
+                    raise AssertionError(f"ingest: the converted {kind} ({dtype}) disagrees "
+                                         f"with the published module on {name}")
+            if launched != 1 + (kind == "scorer"):
+                raise AssertionError(f"ingest {kind}: {launched} K1 launches, want the kernel")
+        del model
+    paths = {}
+    for kind, sd in sds.items():
+        paths[kind] = str(tmp / f"{kind}_converted.npz")
+        convert_jax.save_npz(sd, paths[kind])
+        back = convert_jax.load_npz(paths[kind])
+        if sorted(back) != sorted(sd) or not all(torch.equal(back[k], sd[k]) for k in sd):
+            raise AssertionError(f"ingest: {kind} npz does not reload bit for bit")
+    model = fp.create_foundationpose_model(paths["refiner"], paths["scorer"], [main["house"]], K,
+                                           480, 640)
+    rgb, depth, mask = main["frames"][0]
+    model.register(rgb, depth, mask, "house")  # warm-up: cuDNN plans
+    reset_counts((attention.mha_packed_qkv, render.render_views))
+    pose = model.register(rgb, depth, mask, "house")
+    counts = (render.render_views.launches, attention.mha_packed_qkv.launches)
+    log(f"ingest: Register with the converted nets (seeded weights) pose finite="
+        f"{bool(np.isfinite(pose).all())}; launches (render, attention)={counts}")
+    if counts != (2, 3) or not np.isfinite(pose).all():
+        raise AssertionError(f"ingest Register launched {counts}, want (2, 3), or its pose "
+                             "is not finite")
+    return dict(register_launches=counts)
+
+
+def run_train(torch, np, fp, attention, render, transforms, sweep, K, main, tmp):
+    """The trainers at the published NetConfig on a bank of 4 family objects:
+    (a) one fixed refiner batch of 8 built on the card (K2) and on the CPU
+    (plain render), and the gradients of refiner_loss on both from that batch
+    and the same parameters; (b) 60 refiner steps at batch 64 from scratch,
+    then 20 scorer steps (8 scenes x 8 hypotheses, att_cross on); (c) the
+    tools' evaluate on the committed multi weights; (d) the refiner of (b)
+    saved as bf16 npz, reloaded, one Register."""
+    import dataclasses
+    import json as _json
+
+    from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
+    from foundationpose_cpp_tpu_torch.meshio import family
+    from foundationpose_cpp_tpu_torch.models import networks
+    from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
+    from foundationpose_cpp_tpu_torch.tools import train_synthetic
+    from foundationpose_cpp_tpu_torch.training import multi
+    from foundationpose_cpp_tpu_torch.training import synthetic as tr
+
+    cfg, net_cfg = FoundationPoseConfig(), networks.NetConfig()
+    tcfg = tr.SyntheticTrainConfig(warmup_steps=10)
+    assets = [family.random_family_asset(s) for s in range(4)]
+    bank = multi.build_mesh_bank(assets, device="cuda")
+    log(f"train: bank {bank.names}, faces "
+        f"{[int(m.face_valid.sum()) for m in bank.meshes]}, diameter {bank.diameter}")
+    big = max(range(len(assets)), key=lambda i: assets[i].faces.shape[0])
+    render_rows = check_render(torch, transforms, render, sweep,
+                               [(bank.names[big], 64, 160, assets[big])])
+
+    # (a) one fixed batch, card vs CPU; gradients from that batch
+    K_np = tr.default_intrinsics(tcfg)
+    tcfg8 = dataclasses.replace(tcfg, batch=8)
+    gt, hyp = tr.sample_refiner_poses(torch.Generator().manual_seed(3), tcfg8, bank.diameter)
+    mesh_cpu = MeshConstants.from_asset(assets[big], "cpu")
+    with torch.no_grad():
+        card = tr.refiner_batch(bank.meshes[big], gt.cuda(), hyp.cuda(), torch.from_numpy(K_np).cuda(),
+                                cfg, tcfg8)
+        host = tr.refiner_batch(mesh_cpu, gt, hyp, torch.from_numpy(K_np), cfg, tcfg8)
+    for key in ("render_input", "transf_input"):
+        bad, err = sweep.render_disagreement(card[key].cpu(), host[key], RENDER_TOL)
+        log(f"train (a): {key} of 8, K2 vs the plain render on the CPU: pixels_off={bad:.4%} "
+            f"max_abs_err={err:.3e}")
+        if bad >= RENDER_BAD_FRAC:
+            raise AssertionError(f"train (a): the card's {key} disagrees with the CPU's")
+    for key in ("trans_target", "rotvec_target"):
+        d = (card[key].cpu() - host[key]).abs().max().item()
+        if d > 1e-5:
+            raise AssertionError(f"train (a): {key} differs by {d:.3e} between card and CPU")
+    plain_cfg = dataclasses.replace(net_cfg, attn_impl="plain")
+    nets = {"cpu": networks.init_net("refiner", plain_cfg, 5)}
+    nets["cuda"] = networks.init_net("refiner", plain_cfg, 5).cuda()
+    grads = {}
+    for where, net in nets.items():
+        batch = {k: v.to(where) for k, v in host.items()}
+        loss, _ = tr.refiner_loss(net, batch, cfg.rot_normalizer)
+        loss.backward()
+        grads[where] = ({k: p.grad.cpu() for k, p in net.named_parameters()}, float(loss.detach()))
+    rel = {k: ((grads["cuda"][0][k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for k, g in grads["cpu"][0].items()}
+    worst = max(rel, key=rel.get)
+    log(f"train (a): refiner_loss card {grads['cuda'][1]:.6f} cpu {grads['cpu'][1]:.6f}; "
+        f"gradient relative L2, worst of {len(rel)} parameters: {rel[worst]:.3e} ({worst}), "
+        f"median {float(np.median(list(rel.values()))):.3e}; TF32 off")
+    if rel[worst] >= GRAD_REL_L2:
+        raise AssertionError(f"train (a): gradient of {worst} off by {rel[worst]:.3e} relative L2")
+    del nets, grads
+
+    # (b) short runs from scratch
+    counted = (attention.mha_packed_qkv, attention.mha_whole_head, render.render_views)
+    runs = {}
+    for kind, steps, lr in (("refiner", 60, tcfg.lr), ("scorer", 20, 1e-4)):
+        losses = []
+        kcfg = dataclasses.replace(net_cfg, cross_attention=kind == "scorer")
+        ktcfg = dataclasses.replace(tcfg, lr=lr)
+        train = multi.train_refiner_multi if kind == "refiner" else multi.train_scorer_multi
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        net = train(bank, cfg, kcfg, ktcfg, steps=steps, seed=0 if kind == "refiner" else 1,
+                    log=log, on_step=lambda i, loss: losses.append(loss))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_of(counted)
+        losses = torch.stack(losses).cpu().numpy()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[kind] = dict(net=net, ms=wall * 1e3 / steps, losses=losses)
+        log(f"train (b): {kind} {steps} steps at batch {ktcfg.batch}: ms_per_step={wall * 1e3 / steps:.1f} "
+            f"steps_per_s={steps / wall:.3f} peak_allocated_gb={peak:.2f}; loss first 10 mean "
+            f"{losses[:10].mean():.4f} last 10 mean {losses[-10:].mean():.4f}; launches (packed "
+            f"attention, head-split attention, render)={counts}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train (b): {kind} loss not finite")
+        if counts != (0, 0, 2 * steps):
+            raise AssertionError(f"train (b): {kind} launched {counts}, want (0, 0, {2 * steps})")
+    if not runs["refiner"]["losses"][-10:].mean() < runs["refiner"]["losses"][:10].mean():
+        raise AssertionError("train (b): the refiner loss did not fall over 60 steps")
+
+    # (c) evaluation of the committed weights
+    report = _json.loads((ROOT / "weights" / "eval_multi_full.json").read_text())
+    evals = {}
+    for label, asset in (("unseen_seed", family.random_family_asset(20_000)),
+                         ("heldout_wedge", family.random_family_asset(30_000, generator="wedge"))):
+        reset_counts(counted)
+        r = train_synthetic.evaluate(asset, str(ROOT / "weights" / "refiner_multi_full.npz"),
+                                     str(ROOT / "weights" / "scorer_multi_full.npz"), cfg, tcfg,
+                                     2, 0, device="cuda")
+        counts = counts_of(counted)
+        ref = report.get(f"{label}:{asset.name}", {})
+        log(f"train (c): evaluate {label}:{asset.name} on the card (2 scenes): failures "
+            f"{r['register_failures']} register_adds={r.get('register_adds', float('nan')) * 1e3:.2f} mm "
+            f"(limit {asset.diameter * 100:.1f} mm) register_rot_deg={r.get('register_rot_deg', float('nan')):.2f} "
+            f"tracked_rot_deg={r.get('tracked_rot_deg', float('nan')):.2f} flips={r.get('register_flips')}; "
+            f"launches (packed attention, head-split attention, render)={counts}; the TPU report's "
+            f"row (12 other scenes, context only): register_adds="
+            f"{ref.get('register_adds', float('nan')) * 1e3:.2f} mm register_rot_deg="
+            f"{ref.get('register_rot_deg', float('nan')):.2f} flips={ref.get('register_flips')}")
+        if r["register_failures"] or r["register_adds"] >= 0.1 * asset.diameter \
+                or r["register_flips"]:
+            raise AssertionError(f"train (c): evaluate {label} failed its bounds: {r}")
+        if counts != (12, 0, 12):
+            raise AssertionError(f"train (c): evaluate launched {counts}, want (12, 0, 12)")
+        evals[label] = r
+
+    # (d) the trained refiner saved as bf16 and served
+    path = str(tmp / "refiner_trained.npz")
+    tr.save_bf16(runs["refiner"]["net"], path)
+    model = fp.create_foundationpose_model(path, str(ROOT / "weights" / "scorer_multi_full.npz"),
+                                           [main["house"]], K, 480, 640)
+    rgb, depth, mask = main["frames"][0]
+    reset_counts((attention.mha_packed_qkv, render.render_views))
+    pose = model.register(rgb, depth, mask, "house")
+    counts = (render.render_views.launches, attention.mha_packed_qkv.launches)
+    log(f"train (d): Register with the trained refiner (bf16 npz) pose finite="
+        f"{bool(np.isfinite(pose).all())}; launches (render, attention)={counts}")
+    if counts != (2, 3) or not np.isfinite(pose).all():
+        raise AssertionError(f"train (d): Register launched {counts} or gave a non-finite pose")
+    return dict(ms_per_step={k: v["ms"] for k, v in runs.items()}, render=render_rows, evals=evals)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1235,6 +1476,11 @@ def main() -> int:
           counted, K)
     phase("sync", run_sync_free, torch, np, launches)
     phase("bench", run_bench, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("ingest", run_ingest, torch, np, fp, attention, render, K, launches,
+              pathlib.Path(tmp))
+        phase("train", run_train, torch, np, fp, attention, render, transforms, sweep, K,
+              launches, pathlib.Path(tmp))
 
     def row(r):
         return {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -7,6 +7,8 @@ position table as ``pos_embed``. ``params_from_jax`` maps it onto the
 ``state_dict`` of ``RefineNet`` / ``ScoreNet`` (OIHW convs, (out, in)
 linears), keeping every dtype; ``load_npz`` reads a ``weights/*_full.npz``
 checkpoint with no JAX, and both routes give identical tensors.
+``params_to_jax`` is the inverse, so that ``checkpoint.save_params`` writes
+what the port trained or converted as a file the JAX package loads.
 """
 
 from __future__ import annotations
@@ -73,6 +75,68 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         if key.startswith("head_"):
             _linear(sd, f"heads.{key[len('head_'):]}", p["w"], p["b"])
     return sd
+
+
+def _hwio(sd: dict, key: str) -> torch.Tensor:
+    return sd[key].detach().cpu().permute(2, 3, 1, 0).contiguous()
+
+
+def _t(sd: dict, key: str) -> torch.Tensor:
+    return sd[key].detach().cpu().t().contiguous()
+
+
+def _plain(sd: dict, key: str) -> torch.Tensor:
+    return sd[key].detach().cpu()
+
+
+def _res_to_jax(sd: dict, prefix: str) -> dict:
+    return {f"{n}{i}": f(sd, f"{prefix}.conv{i}.{k}") for i in (1, 2)
+            for n, f, k in (("w", _hwio, "weight"), ("b", _plain, "bias"))}
+
+
+def _encoder_layer_to_jax(sd: dict, prefix: str) -> dict:
+    return {
+        "attn": {"qkv_w": _t(sd, f"{prefix}.attn.qkv.weight"),
+                 "qkv_b": _plain(sd, f"{prefix}.attn.qkv.bias"),
+                 "proj_w": _t(sd, f"{prefix}.attn.proj.weight"),
+                 "proj_b": _plain(sd, f"{prefix}.attn.proj.bias")},
+        **{f"{ln}_{jk}": _plain(sd, f"{prefix}.{ln}.{k}")
+           for ln in ("ln1", "ln2") for jk, k in (("s", "weight"), ("b", "bias"))},
+        **{f"mlp_{jk}{i}": f(sd, f"{prefix}.mlp{i}.{k}")
+           for i in (1, 2) for jk, f, k in (("w", _t, "weight"), ("b", _plain, "bias"))},
+    }
+
+
+def params_to_jax(sd: dict[str, torch.Tensor]) -> dict:
+    """Port ``state_dict`` -> the JAX parameter tree (HWIO convs, (in, out)
+    linears, ``encoder`` as a list), CPU torch leaves, every dtype kept: the
+    inverse of ``params_from_jax``."""
+    tree = {
+        "encodeA": {
+            "conv0": {"w": _hwio(sd, "encodeA.conv0.weight"), "b": _plain(sd, "encodeA.conv0.bias")},
+            "conv1": {"w": _hwio(sd, "encodeA.conv1.weight"), "b": _plain(sd, "encodeA.conv1.bias")},
+            "res": _res_to_jax(sd, "encodeA.res"),
+        },
+        "encodeAB": {
+            "res0": _res_to_jax(sd, "encodeAB.res0"),
+            "conv": {"w": _hwio(sd, "encodeAB.conv.weight"), "b": _plain(sd, "encodeAB.conv.bias")},
+            "res1": _res_to_jax(sd, "encodeAB.res1"),
+        },
+        "pos_embed": _plain(sd, "pos_embed"),
+        "encoder": [_encoder_layer_to_jax(sd, f"encoder.{i}") for i in
+                    range(len({k.split(".")[1] for k in sd if k.startswith("encoder.")}))],
+    }
+    if "att_cross.attn.qkv.weight" in sd:
+        tree["att_cross"] = _encoder_layer_to_jax(sd, "att_cross")
+    for head in sorted({k.split(".")[1] for k in sd if k.startswith("heads.")}):
+        tree[f"head_{head}"] = {"w": _t(sd, f"heads.{head}.weight"),
+                                "b": _plain(sd, f"heads.{head}.bias")}
+    return tree
+
+
+def save_npz(sd: dict[str, torch.Tensor], path: str) -> None:
+    """Port ``state_dict`` -> a checkpoint in the JAX package's npz format."""
+    checkpoint.save_params(params_to_jax(sd), path)
 
 
 def net_config_from_state_dict(sd: dict[str, torch.Tensor], num_heads: int = 4) -> NetConfig:

@@ -24,7 +24,9 @@ statistics and the heads run in f32. The attention core is a CUDA kernel
 on the card, routed as the JAX function routes its Pallas kernels: a head
 width that is a multiple of 128 reads the packed projection
 (``ops.attention.mha_packed_qkv``), any other splits heads first
-(``ops.attention.mha_whole_head``).
+(``ops.attention.mha_whole_head``). The kernel is forward-only and raises
+under autograd; ``NetConfig(attn_impl="plain")`` runs its plain version on
+any device, with gradients, as the trainers do.
 """
 
 from __future__ import annotations
@@ -53,6 +55,15 @@ class NetConfig:
     num_encoder_layers: int = 1
     crop_hw: int = 160
     cross_attention: bool = False  # scorer ScoreNetMultiPair att_cross
+    # attention core: "auto" launches the attention kernel on CUDA tensors
+    # (forward only; it raises under autograd) and runs its plain version on
+    # CPU tensors; "plain" runs the plain version on any device, with
+    # autograd (the JAX package's "xla"), as the trainers do
+    attn_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.attn_impl not in ("auto", "plain"):
+            raise ValueError(f"attn_impl must be 'auto' or 'plain', got {self.attn_impl!r}")
 
     @property
     def num_tokens(self) -> int:
@@ -132,9 +143,10 @@ class LayerNorm(nn.Module):
 class SelfAttention(nn.Module):
     """torch.nn.MultiheadAttention forward: packed in_proj, scaled dot."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, plain: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.plain = plain
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
@@ -142,7 +154,10 @@ class SelfAttention(nn.Module):
         qkv = self.qkv(x)  # (N, T, 3D)
         n, t, d = x.shape
         hd = d // self.num_heads
-        if hd % 128 == 0:
+        if self.plain:
+            # the kernels' numerics in tensor ops, differentiable
+            out = attention.mha_packed_qkv_plain(qkv, self.num_heads, 1.0 / math.sqrt(hd))
+        elif hd % 128 == 0:
             # heads are column slices of the projection: no transposes
             out = attention.mha_packed_qkv(qkv, self.num_heads, 1.0 / math.sqrt(hd))
         else:
@@ -159,9 +174,9 @@ class EncoderLayer(nn.Module):
     """Post-norm TransformerEncoderLayer with a ReLU FFN:
     x = norm1(x + attn(x)); x = norm2(x + linear2(relu(linear1(x))))."""
 
-    def __init__(self, dim: int, num_heads: int, ffn_dim: int):
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int, plain_attention: bool = False):
         super().__init__()
-        self.attn = SelfAttention(dim, num_heads)
+        self.attn = SelfAttention(dim, num_heads, plain_attention)
         self.ln1 = LayerNorm(dim)
         self.ln2 = LayerNorm(dim)
         self.mlp1 = Linear(dim, ffn_dim)
@@ -191,12 +206,13 @@ class _Backbone(nn.Module):
         self.pos_embed = nn.Parameter(
             torch.from_numpy(sinusoidal_position_table(cfg.num_tokens, cfg.embed_dim))
         )
+        plain = cfg.attn_impl == "plain"
         self.encoder = nn.ModuleList([
-            EncoderLayer(cfg.embed_dim, cfg.num_heads, cfg.ffn_dim)
+            EncoderLayer(cfg.embed_dim, cfg.num_heads, cfg.ffn_dim, plain)
             for _ in range(cfg.num_encoder_layers)
         ])
         self.att_cross = (
-            EncoderLayer(cfg.embed_dim, cfg.num_heads, cfg.ffn_dim)
+            EncoderLayer(cfg.embed_dim, cfg.num_heads, cfg.ffn_dim, plain)
             if cfg.cross_attention else None
         )
         self.heads = nn.ModuleDict({
@@ -204,10 +220,14 @@ class _Backbone(nn.Module):
         })
 
     def forward(
-        self, render_input: torch.Tensor, transf_input: torch.Tensor
+        self, render_input: torch.Tensor, transf_input: torch.Tensor,
+        group_size: int | None = None,
     ) -> dict[str, torch.Tensor]:
         """(N, crop, crop, 6) NHWC pair -> {head name: (N, dim) f32}, computed
-        in the dtype of the convolution weights."""
+        in the dtype of the convolution weights. ``group_size``: the number of
+        hypotheses of one scene, when a batch packs several scenes; att_cross
+        then attends within each group only (None: the batch is one scene, as
+        at inference)."""
         dtype = self.encodeA["conv0"].weight.dtype
         n = render_input.shape[0]
         # siamese encode over a 2N batch (torch.cat([A,B],0) in the original)
@@ -229,7 +249,8 @@ class _Backbone(nn.Module):
         pooled = tokens.mean(dim=1)  # (N, D)
         if self.att_cross is not None:
             # one encoder layer attending ACROSS the hypotheses of the scene
-            pooled = self.att_cross(pooled[None])[0]
+            seq = pooled[None] if group_size is None else pooled.reshape(-1, group_size, d)
+            pooled = self.att_cross(seq).reshape(pooled.shape)
         pooled = pooled.float()
         return {
             name: F.linear(pooled, head.weight.float(), head.bias.float())

@@ -169,7 +169,9 @@ def mha_packed_qkv(
 
     A CPU tensor goes through the plain version. A CUDA tensor launches the
     kernel, which takes contiguous, 16-byte aligned bf16 or f32 input with a
-    head width in HEAD_DIMS and any T >= 1, and raises on anything else.
+    head width in HEAD_DIMS and any T >= 1, and raises on anything else,
+    and on an input that requires a gradient under grad mode (the kernel is
+    forward-only).
     """
     b, t, d3 = qkv.shape
     if d3 % (3 * num_heads):
@@ -183,6 +185,7 @@ def mha_packed_qkv(
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     _check_kernel_input(qkv, t, hd, b, "mha_packed_qkv")
+    cuda_build.refuse_grad(qkv, what="mha_packed_qkv")
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     fn = _library().fp_mha_packed_qkv
     with torch.cuda.device(qkv.device):
@@ -205,7 +208,8 @@ def mha_whole_head(
 
     CPU tensors go through the plain version. CUDA tensors launch the
     kernel, which takes contiguous bf16 or f32 q, k, v of one shape and
-    dtype with hd in HEAD_DIMS and any T >= 1, and raises on anything else.
+    dtype with hd in HEAD_DIMS and any T >= 1, and raises on anything else,
+    and on an input that requires a gradient under grad mode.
     """
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, T, hd) shape, got "
@@ -223,6 +227,7 @@ def mha_whole_head(
         _check_kernel_input(x, t, hd, b, "mha_whole_head")
     if h > 65535:
         raise ValueError(f"mha_whole_head: at most 65535 heads, got {h}")
+    cuda_build.refuse_grad(q, k, v, what="mha_whole_head")
     out = torch.empty_like(q)
     fn = _library().fp_mha_whole_head
     with torch.cuda.device(q.device):

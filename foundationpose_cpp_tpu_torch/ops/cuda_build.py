@@ -18,6 +18,8 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 
 
@@ -102,6 +104,20 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         _LIBS[name] = ctypes.CDLL(str(path))
     return _LIBS[name]
+
+
+def refuse_grad(*tensors, what: str) -> None:
+    """Raise when autograd would record through a forward-only kernel.
+
+    The kernels write into fresh tensors through raw pointers, so their
+    output has no ``grad_fn``: under grad mode, an input that requires a
+    gradient would silently get none (the JAX package's Pallas kernels have
+    no VJP and raise there). ``None`` entries are skipped."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel is forward-only and an input requires a gradient; "
+            "call it under torch.no_grad(), or use the plain version (attn_impl='plain')"
+        )
 
 
 def check(err: int, what: str) -> None:

@@ -113,12 +113,13 @@ def bilateral_filter_depth(
 
 
 def depth_to_xyz(depth: torch.Tensor, K: torch.Tensor, min_depth: float = 0.001) -> torch.Tensor:
-    """Pinhole back-projection depth (H, W) -> (H, W, 3) camera-frame xyz.
+    """Pinhole back-projection depth (..., H, W) -> (..., H, W, 3)
+    camera-frame xyz: one frame, or a batch of frames seen through one K.
 
     Pixels with depth < min_depth are exact zeros (the CUDA kernel skips them
     and relies on zeroed memory, foundationpose_utils.cu:3-75).
     """
-    h, w = depth.shape
+    h, w = depth.shape[-2:]
     fx, fy = K[0, 0], K[1, 1]
     cx, cy = K[0, 2], K[1, 2]
     cols = torch.arange(w, dtype=torch.float32, device=depth.device)[None, :].expand(h, w)

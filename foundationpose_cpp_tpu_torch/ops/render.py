@@ -197,7 +197,8 @@ def render_views(
     face_valid (F,) bool, texture (Th, Tw, 3), poses/clip_mat (N, 4, 4).
     CPU tensors go through the plain version. CUDA tensors go through the
     kernel (these checks, two allocations and its two launches, no other
-    tensor op), which raises on what it does not take.
+    tensor op), which raises on what it does not take, and on an input that
+    requires a gradient under grad mode (the kernel is forward-only).
     """
     args = (vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat)
     if poses.device.type == "cpu":
@@ -206,6 +207,7 @@ def render_views(
     if poses.device.type != "cuda":
         raise ValueError(f"unsupported device {poses.device}")
     _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses)
+    cuda_build.refuse_grad(*args, what="render_views")
     if (clip_mat.device != poses.device or clip_mat.dtype != torch.float32
             or clip_mat.shape != poses.shape):
         raise ValueError(f"render kernel: clip_mat must be f32 {tuple(poses.shape)} on {poses.device}")
@@ -234,6 +236,7 @@ def launch_render(
     these plane coefficients and builds none: the scatter and the resolve
     alone, which must agree with the plain version exactly."""
     _check_mesh(None, None, texcoords, faces, face_valid, texture, poses)
+    cuda_build.refuse_grad(verts, texcoords, texture, poses, coeffs, what="launch_render")
     n, v = poses.shape[0], texcoords.shape[0]
     for name, t, shape in (("verts", verts, (n, v, 8)), ("coeffs", coeffs, (n, faces.shape[0], 15))):
         if t is not None and (t.device != poses.device or t.dtype != torch.float32

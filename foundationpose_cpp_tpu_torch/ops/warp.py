@@ -11,6 +11,10 @@ offset -- with INTERP_LINEAR for RGB (computed on u8 values and rounded, as
 cvcuda does, before the 1/255 ConvertTo), INTERP_NEAREST for xyz, and
 BORDER_CONSTANT 0 outside. ``torch.round`` and ``jnp.round`` both round half
 to even, so both warps agree bit for bit with the JAX ones.
+
+Both warps take one image shared by the N poses (Register, Track) or a batch
+of N images, pose i sampling image i (the trainer, where every hypothesis has
+its own observed frame; the JAX trainer vmaps the one-image warp).
 """
 
 from __future__ import annotations
@@ -38,6 +42,15 @@ def _source_coords(tfs: torch.Tensor, crop_h: int, crop_w: int) -> tuple[torch.T
     return sx, sy
 
 
+def _frame_base(img: torch.Tensor, h: int, w: int) -> torch.Tensor | None:
+    """Offset of image i's first pixel in the flattened batch, (N, 1, 1);
+    None for one shared (H, W, C) image."""
+    if img.dim() == 3:
+        return None
+    n = img.shape[0]
+    return (torch.arange(n, dtype=torch.int64, device=img.device) * (h * w))[:, None, None]
+
+
 def _index(coord: torch.Tensor, size: int) -> torch.Tensor:
     """Clamped gather index; NaN coordinates (a failed translation guess
     puts poses at z = 0) read index 0 and are masked out by the caller."""
@@ -47,21 +60,25 @@ def _index(coord: torch.Tensor, size: int) -> torch.Tensor:
 def warp_crop_linear_u8(
     rgb: torch.Tensor, tfs: torch.Tensor, crop_h: int, crop_w: int
 ) -> torch.Tensor:
-    """Bilinear warp of a (H, W, 3) u8 image into (N, crop_h, crop_w, 3) f32 in [0,1]."""
-    h, w, c = rgb.shape
-    assert c == 3
+    """Bilinear warp of a (H, W, 3) u8 image, or of N such images one per
+    pose, into (N, crop_h, crop_w, 3) f32 in [0,1]."""
+    h, w, c = rgb.shape[-3:]
+    if c != 3:
+        raise ValueError(f"warp_crop_linear_u8 takes 3 channels, got {c}")
+    base = _frame_base(rgb, h, w)
     sx, sy = _source_coords(tfs, crop_h, crop_w)
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
     fx = sx - x0
     fy = sy - y0
-    planes = rgb.to(torch.float32).permute(2, 0, 1).reshape(3, h * w)
+    planes = rgb.to(torch.float32).movedim(-1, 0).reshape(3, -1)
 
     def corner(xc, yc):
         inb = (xc >= 0) & (xc < w) & (yc >= 0) & (yc < h)
         xi = _index(xc, w)
         yi = _index(yc, h)
-        vals = planes[:, (yi * w + xi).reshape(-1)].reshape(3, *xi.shape)
+        flat = yi * w + xi if base is None else yi * w + xi + base
+        vals = planes[:, flat.reshape(-1)].reshape(3, *xi.shape)
         return torch.where(inb[None], vals, torch.zeros_like(vals))
 
     v00 = corner(x0, y0)
@@ -83,13 +100,16 @@ def warp_crop_linear_u8(
 def warp_crop_nearest_f32(
     img: torch.Tensor, tfs: torch.Tensor, crop_h: int, crop_w: int
 ) -> torch.Tensor:
-    """Nearest-neighbor warp of a (H, W, C) f32 image into (N, ch, cw, C)."""
-    h, w, c = img.shape
+    """Nearest-neighbor warp of a (H, W, C) f32 image, or of N such images
+    one per pose, into (N, ch, cw, C)."""
+    h, w, c = img.shape[-3:]
+    base = _frame_base(img, h, w)
     sx, sy = _source_coords(tfs, crop_h, crop_w)
     xr = torch.round(sx)
     yr = torch.round(sy)
     inb = (xr >= 0) & (xr < w) & (yr >= 0) & (yr < h)
     xi = _index(xr, w)
     yi = _index(yr, h)
-    vals = img.reshape(h * w, c)[(yi * w + xi).reshape(-1)].reshape(*xi.shape, c)
+    flat = yi * w + xi if base is None else yi * w + xi + base
+    vals = img.reshape(-1, c)[flat.reshape(-1)].reshape(*xi.shape, c)
     return torch.where(inb[..., None], vals, torch.zeros_like(vals))

@@ -1,1 +1,1 @@
-"""Scripts that measure the port's kernels on the card."""
+"""Command-line tools of the port: kernel sweeps and tree comparisons on the card, weight conversion, training."""

@@ -424,3 +424,62 @@ def test_track_and_register_never_wait_for_the_card(card):
         torch.cuda.set_sync_debug_mode("default")
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def test_kernels_refuse_inputs_that_require_grad(card):
+    """Each CUDA wrapper writes its output through raw pointers, so autograd
+    would lose the gradient: under grad mode an input that requires one
+    raises, under no_grad the same call runs (the JAX package's Pallas
+    kernels have no VJP either)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    qkv = torch.randn((2, 40, 3 * 2 * 128), generator=gen, device=card).requires_grad_()
+    with pytest.raises(RuntimeError, match="mha_packed_qkv.*forward-only"):
+        attention.mha_packed_qkv(qkv, 2)
+    q, k, v = (torch.randn((2, 3, 33, 16), generator=gen, device=card) for _ in range(3))
+    with pytest.raises(RuntimeError, match="mha_whole_head.*forward-only"):
+        attention.mha_whole_head(q, k.requires_grad_(), v)
+    mesh = MeshConstants.from_asset(procedural.textured_cube(size=0.1), card)
+    args = list(_render_args(mesh, 32, 32, 2, card))
+    args[6] = args[6].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="render_views.*forward-only"):
+        render.render_views(*args)
+    verts = render.vertex_prepass_plain(args[0], args[1], args[6].detach(), args[7])
+    with pytest.raises(RuntimeError, match="launch_render.*forward-only"):
+        render.launch_render(verts.requires_grad_(), *args[2:6], args[6], *args[8:])
+    with torch.no_grad():
+        assert attention.mha_packed_qkv(qkv, 2).shape == (2, 40, 256)
+        assert attention.mha_whole_head(q, k, v).shape == q.shape
+        assert render.render_views(*args).shape == (2, 32, 32, 6)
+        assert render.launch_render(verts, *args[2:6], args[6], *args[8:]).shape == (2, 32, 32, 6)
+
+
+def test_refiner_step_on_the_card_trains_every_layer(card):
+    """One refiner step on the card at a head width of 128 (where the nets
+    would take the attention kernel): the trainer's plain attention carries
+    gradients to the layers before the attention, and the render kernel
+    makes the batch twice."""
+    import dataclasses
+
+    from foundationpose_cpp_tpu_torch.models import networks
+    from foundationpose_cpp_tpu_torch.training import synthetic as tr
+
+    mesh = MeshConstants.from_asset(procedural.textured_house(size=0.1), card)
+    cfg = FoundationPoseConfig(crop_window_h=32, crop_window_w=32)
+    tcfg = tr.SyntheticTrainConfig(frame_hw=64, focal=180.0, batch=4, steps_per_call=1,
+                                   warmup_steps=1, lr=1e-3)
+    net_cfg = networks.NetConfig(width1=8, width2=8, embed_dim=256, num_heads=2, ffn_dim=16,
+                                 crop_hw=32)
+    before = networks.init_net("refiner", net_cfg, 0).state_dict()  # the trainer's seed-0 start
+    counts = (render.render_views.launches, attention.mha_packed_qkv.launches)
+    net = tr.train_refiner(mesh, cfg, net_cfg, tcfg, steps=2, seed=0)
+    assert render.render_views.launches - counts[0] == 4
+    assert attention.mha_packed_qkv.launches == counts[1]
+    after = {k: v.cpu() for k, v in net.state_dict().items()}
+    for key in ("encodeA.conv0.weight", "encodeAB.res1.conv2.weight", "encoder.0.attn.qkv.weight",
+                "pos_embed"):
+        assert not torch.equal(after[key], before[key]), key
+    # the same net with the default attention refuses to be differentiated
+    auto = networks.init_net("refiner", dataclasses.replace(net_cfg, attn_impl="auto"), 0).to(card)
+    x = torch.rand((1, 32, 32, 6), device=card)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        auto(x, x)
