@@ -31,6 +31,10 @@ it and read just after:
   configuration);
 - 64 chained packed steps and a Register under
   ``torch.cuda.set_sync_debug_mode("error")``;
+- the hypothesis split (``parallel.sharding``) in rank processes: Register
+  on the house frame at W=1 over NCCL (equal to ``register_step``, with no
+  host sync), at W=2 and W=8 over gloo with every rank on this card, and
+  the eight cubes' ``track_batch`` at W=2, each against the single process;
 - the port bench (``foundationpose_cpp_tpu_torch.bench``), whose JSON line
   it prints;
 - model ingest: the published-structure refiner and scorer at the published
@@ -1092,7 +1096,8 @@ def run_multi_object(torch, np, fp, tproc, syn, transforms, render, sweep, kerne
         raise AssertionError(f"multi-object: rotation errors {rot}, translation errors {trans}")
     if counts != (5, 0, 5, 0):
         raise AssertionError(f"multi-object launched {counts}, want (5, 0, 5, 0)")
-    return dict(launches=counts, ms_per_object=ms, render=render_rows)
+    return dict(launches=counts, ms_per_object=ms, render=render_rows, cube=cube, rgb=rgb,
+                depth=depth, starts=starts, gts=gts)
 
 
 def run_sync_free(torch, np, main):
@@ -1136,6 +1141,178 @@ def run_sync_free(torch, np, main):
         raise AssertionError("the calls under the sync debug mode gave other poses")
 
 
+# JAX's tolerance for bf16 scores at per-shard batches on the TPU
+# (tests/test_parallel.py:136-140), where the refined poses came out
+# bit-identical; reported here, not gated (see run_sharded)
+JAX_SHARD_SCORE_TOL = (2e-2, 2e-3)  # rtol, atol
+# the split's bf16 scores may miss the f32 Register's by at most this many
+# times the single process's own bf16 error
+SHARD_BF16_ERR_FACTOR = 2.0
+
+
+def check_ranks(res, backend: str, want_launches: dict, want_gathers: int, what: str) -> None:
+    """Every rank: its backend, no JAX, its kernel launches and its
+    collectives (all-gathers only) in the counted run."""
+    for out in res:
+        meta = out["meta"]
+        (task,) = meta["tasks"]
+        if meta["backend"] != backend or meta["jax_imported"]:
+            raise AssertionError(f"{what}: rank {meta['rank']} ran {meta['backend']} (want "
+                                 f"{backend}), jax imported: {meta['jax_imported']}")
+        launches = {k: v for k, v in task["launches"].items() if v}
+        if launches != want_launches or task["collectives"] != {"all_gather": want_gathers}:
+            raise AssertionError(f"{what}: rank {meta['rank']} launched {task['launches']} and "
+                                 f"issued {task['collectives']}, want {want_launches} and "
+                                 f"{want_gathers} all_gather")
+
+
+def run_sharded(torch, np, fp, main, multi, K, tmp):
+    """The hypothesis split (``parallel.sharding``) in rank processes
+    (``parallel.ranks``, ``python -m``, a ``file://`` rendezvous; this process
+    joins no group), at full width on the main path's house frame with the
+    committed weights (the scorer has att_cross):
+
+    - W=1 over NCCL: the sharded Register equals ``register_step`` at atol
+      1e-6, its counted run made under ``set_sync_debug_mode("error")``;
+    - W=2 and W=8, every rank on cuda:0 over gloo (NCCL refuses two ranks on
+      one device), W=8 padding 252 to 256, against rank 0's ``register_step``
+      on the padded grid with ``hyp_valid`` and, here, the same Register
+      with f32 nets. In bf16 cuDNN's results change with the batch (126 or
+      32 rows against 256), so the refined poses must equal a one-process
+      refine at the same per-shard batches bit for bit, and the scores may
+      miss the f32 Register's by at most SHARD_BF16_ERR_FACTOR times the
+      single bf16 process's own error; -inf on the pad rows, the best pose
+      under the ADD-S gate, and a best hypothesis other than the single
+      process's must score within that error of its best;
+    - W=2 over gloo: ``make_sharded_track_batch`` of the eight cubes of
+      config 5, 4 a rank, 5 chained steps, each instance under the
+      multi-object gates, against ``track_step`` of the 8.
+
+    Each rank launches K2 twice and K1 three times a Register and issues
+    three all-gathers and nothing else. Ranks sharing one card measure the
+    split's correctness and overhead, not scaling."""
+    import dataclasses
+
+    from foundationpose_cpp_tpu_torch.geometry import icosphere
+    from foundationpose_cpp_tpu_torch.parallel import ranks, sharding
+    from foundationpose_cpp_tpu_torch.pipeline import foundationpose as fpp
+    from foundationpose_cpp_tpu_torch.utils import metrics
+
+    rgb, depth, mask = main["frames"][0]
+    house, gt, model = main["house"], main["gts"][0], main["model"]
+    mesh, cfg = model._meshes["house"], model._cfg
+    f32 = fp.create_foundationpose_model(
+        str(ROOT / "weights" / "refiner_multi_full.npz"),
+        str(ROOT / "weights" / "scorer_multi_full.npz"), [house], K, 480, 640,
+        config=dataclasses.replace(cfg, use_bf16_models=False))
+    frame = [torch.from_numpy(a).cuda() for a in (rgb, depth, mask)]
+
+    @torch.inference_mode()
+    def f32_scores(padded, valid):
+        return fpp.register_step(mesh, f32._refiner, f32._scorer, *frame,
+                                 torch.from_numpy(padded).cuda(), model._K, 1, cfg,
+                                 hyp_valid=torch.from_numpy(valid).cuda())[2].cpu().numpy()
+
+    @torch.inference_mode()
+    def refine_in_shards(padded, n):
+        poses, xyz_map, _ = fpp.prepare_register(frame[1], frame[2],
+                                                 torch.from_numpy(padded).cuda(), model._K, cfg)
+        m = poses.shape[0] // n
+        return torch.cat([fpp.refine_loop(mesh, model._refiner, poses[i:i + m], frame[0], xyz_map,
+                                          model._K, 1, cfg)
+                          for i in range(0, poses.shape[0], m)]).cpu().numpy()
+
+    pts = surface_points(np, house)
+    job = dict(device=None, mesh=["textured_house", {"name": "house"}], K=K.tolist(), cfg={},
+               refiner=str(ROOT / "weights" / "refiner_multi_full.npz"),
+               scorers={"multi": str(ROOT / "weights" / "scorer_multi_full.npz")},
+               tasks=[{"kind": "register", "scorer": "multi", "reps": 3}])
+    grid = icosphere.make_rotation_grid()
+    rtol, atol = JAX_SHARD_SCORE_TOL
+    for n in (1, 2, 8):
+        padded, valid = sharding.pad_grid(grid, n)
+        (tmp / f"w{n}").mkdir()
+        t0 = time.perf_counter()
+        res = ranks.run(job, dict(rgb=rgb, depth=depth, mask=mask, rot_grid=padded,
+                                  hyp_valid=valid), n, tmp / f"w{n}", timeout=300)
+        wall = time.perf_counter() - t0
+        backend = "nccl" if n <= torch.cuda.device_count() else "gloo"
+        check_ranks(res, backend, {"render_views": 2, "mha_packed_qkv": 3}, 3, f"sharded W={n}")
+        a, (task,) = res[0]["arrays"], res[0]["meta"]["tasks"]
+        for r in res[1:]:
+            if not all(np.array_equal(v, a[k]) for k, v in r["arrays"].items()
+                       if not k.startswith("t0_ref")):
+                raise AssertionError(f"sharded W={n}: rank {r['meta']['rank']} returned "
+                                     f"other poses or scores than rank 0")
+        scores, single = a["t0_scores"][valid], a["t0_ref_scores"][valid]
+        pose_d = float(np.abs(a["t0_poses"] - a["t0_ref_poses"]).max())
+        score_d = float(np.abs(scores - single).max())
+        best, ref_best = int(np.argmax(a["t0_scores"])), int(np.argmax(a["t0_ref_scores"]))
+        adds = add_s(np, pts, a["t0_best"], gt)
+        log(f"sharded W={n} ({backend}, {'a card each' if backend == 'nccl' else 'one shared card'}): "
+            f"{padded.shape[0] // n} hypotheses a rank, {int((~valid).sum())} pad rows; "
+            f"max|d| vs register_step poses {pose_d:.3e} scores {score_d:.3e}; argmax "
+            f"{best} (single {ref_best}); ADD-S {adds * 1e3:.2f} mm; register_ms sharded "
+            f"{task['ms']:.2f} single {task['ref_ms']:.2f} (rank 0, host clock, "
+            f"3 reps); launches {task['launches']}; collectives {task['collectives']}; "
+            f"wall {wall:.1f} s")
+        if not (bool(a["t0_ok"]) and np.isfinite(a["t0_best"]).all()):
+            raise AssertionError(f"sharded W={n}: Register failed or gave a non-finite pose")
+        if not (np.isneginf(a["t0_scores"][~valid]).all() and np.isfinite(scores).all()
+                and np.isneginf(a["t0_ref_scores"][~valid]).all()):
+            raise AssertionError(f"sharded W={n}: pad rows are not -inf or real rows not finite")
+        if adds >= 0.1 * house.diameter:
+            raise AssertionError(f"sharded W={n}: ADD-S {adds:.4f} m >= 0.1 x diameter")
+        if n == 1:
+            if max(pose_d, score_d, float(np.abs(a["t0_best"] - a["t0_ref_best"]).max())) > 1e-6:
+                raise AssertionError(f"sharded W=1 differs from register_step: poses {pose_d}, "
+                                     f"scores {score_d}")
+            continue
+        shard_pose_d = float(np.abs(a["t0_poses"] - refine_in_shards(padded, n)).max())
+        truth = f32_scores(padded, valid)[valid]
+        err_single = float(np.abs(single - truth).max())
+        err_shard = float(np.abs(scores - truth).max())
+        jax_rows = int((np.abs(scores - single) > atol + rtol * np.abs(single)).sum())
+        jax_rows_f32 = int((np.abs(single - truth) > atol + rtol * np.abs(truth)).sum())
+        log(f"  W={n}: poses vs one process refining {padded.shape[0] // n} rows at a time "
+            f"max|d| {shard_pose_d:.3e}; scores vs the f32 Register: sharded {err_shard:.3e}, "
+            f"single bf16 {err_single:.3e} (ratio {err_shard / max(err_single, 1e-30):.2f}, limit "
+            f"{SHARD_BF16_ERR_FACTOR}); rows outside JAX's TPU tolerance (rtol {rtol}, atol "
+            f"{atol}): sharded vs single {jax_rows}, single bf16 vs f32 {jax_rows_f32} of "
+            f"{int(valid.sum())}")
+        if shard_pose_d != 0.0:
+            raise AssertionError(f"sharded W={n}: refined poses differ from a one-process refine "
+                                 f"at the same batches by {shard_pose_d}")
+        if err_shard > SHARD_BF16_ERR_FACTOR * err_single:
+            raise AssertionError(f"sharded W={n}: scores miss the f32 Register by {err_shard}, "
+                                 f"more than {SHARD_BF16_ERR_FACTOR} x bf16's own {err_single}")
+        gap = float(a["t0_ref_scores"][ref_best] - a["t0_ref_scores"][best])
+        if gap > SHARD_BF16_ERR_FACTOR * err_single:
+            raise AssertionError(f"sharded W={n} picked hypothesis {best}, {gap} under the best "
+                                 f"{ref_best}: more than the bf16 error")
+
+    cube, gts = multi["cube"], multi["gts"]
+    (tmp / "track").mkdir()
+    t0 = time.perf_counter()
+    res = ranks.run(
+        dict(job, mesh=["textured_cube", {"size": 0.08}],
+             tasks=[{"kind": "track", "steps": 5}]),
+        dict(rgb=multi["rgb"], depth=multi["depth"], track_poses=multi["starts"]), 2,
+        tmp / "track", timeout=300)
+    wall = time.perf_counter() - t0
+    check_ranks(res, "nccl" if torch.cuda.device_count() >= 2 else "gloo",
+                {"render_views": 5, "mha_packed_qkv": 5}, 5, "sharded track_batch")
+    a = res[0]["arrays"]
+    rot = [metrics.rotation_error_deg_sym(p, g, cube.symmetries) for p, g in zip(a["t0_poses"], gts)]
+    trans = [float(np.linalg.norm(p[:3, 3] - g[:3, 3])) for p, g in zip(a["t0_poses"], gts)]
+    delta = float(np.abs(a["t0_poses"] - a["t0_ref_poses"]).max())
+    log(f"sharded track_batch W=2 (gloo): 8 cubes, 4 a rank, 5 steps: rot_err_deg "
+        + " ".join(f"{r:.2f}" for r in rot) + " | t_err_mm " + " ".join(f"{t * 1e3:.2f}" for t in trans)
+        + f"; max|d| vs track_step of the 8 {delta:.3e}; wall {wall:.1f} s")
+    if max(rot) >= 5.0 or max(trans) >= 0.01:
+        raise AssertionError(f"sharded track_batch: rotation errors {rot}, translation {trans}")
+
+
 def run_bench(np):
     """foundationpose_cpp_tpu_torch.bench at its defaults: one JSON line with
     the keys of bench.py, the h2d, memory and scan blocks filled."""
@@ -1159,12 +1336,17 @@ def run_bench(np):
 
     d = result["details"]
     lost = missing(literal, result)
+    sharded = d["sharded"]
     if lost or d["platform"] != "gpu" or d["stage_ms"]["render_252_corner"] is not None \
-            or d["sharded"] is not None or not d["card"]:
+            or not d["card"]:
         raise AssertionError(f"bench line: keys of bench.py missing {lost}, or wrong nulls")
+    if not isinstance(sharded, dict) or "error" in sharded or sharded.get("n_devices") != 8 \
+            or sharded.get("collectives_fused") != {"all_gather": 2}:
+        raise AssertionError(f"bench line: the sharded block failed: {sharded}")
     numbers = [result["value"], d["track_fps"], d["track_fps_percall"], d["track_fps_dispatch"],
                d["track_fps_pipelined"], d["h2d"]["ms_per_frame"], d["hbm_peak_gb"],
-               *d["scan"].values(), d["stage_ms"]["render_252"]]
+               *d["scan"].values(), d["stage_ms"]["render_252"], sharded["register_ms_single"],
+               sharded["register_ms_sharded"], sharded["speedup"]]
     if not all(np.isfinite(v) and v > 0 for v in numbers):
         raise AssertionError(f"bench line has numbers that are not finite and positive: {numbers}")
     return result
@@ -1472,9 +1654,11 @@ def main() -> int:
                        pathlib.Path(tmp))
         phase("scan", run_scan, torch, np, fp, tproc, syn, transforms, render, rasterize_tiled,
               sweep, counted, K, pathlib.Path(tmp))
-    phase("multi-object", run_multi_object, torch, np, fp, tproc, syn, transforms, render, sweep,
-          counted, K)
+    multi = phase("multi-object", run_multi_object, torch, np, fp, tproc, syn, transforms,
+                  render, sweep, counted, K)
     phase("sync", run_sync_free, torch, np, launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("sharded", run_sharded, torch, np, fp, launches, multi, K, pathlib.Path(tmp))
     phase("bench", run_bench, np)
     with tempfile.TemporaryDirectory() as tmp:
         phase("ingest", run_ingest, torch, np, fp, attention, render, K, launches,

@@ -10,7 +10,8 @@ packed-frame tracker and the async tracker over a native frame ring
 (``pipeline/``, ``native/``), the named-blob inference cores
 (``create_refiner_core``, ``create_scorer_core``), the scanned-mesh ingest
 (native PLY/OBJ parsers, decimation, adaptive subdivision: ``meshio/``),
-the demos and the bench (``bench.py``). Entry points run on the
+the hypothesis split over several cards (``parallel/``), the demos and the
+bench (``bench.py``). Entry points run on the
 card unless the caller passes ``device="cpu"``. Nothing here imports JAX.
 
 TF32 is switched off for matmuls and cuDNN convolutions: geometry and

@@ -31,7 +31,10 @@ read:
 - ``memory``: ``torch.cuda.max_memory_allocated`` over the Register and the
   Track loops.
 
-``sharded`` is null: the port has no multi-card split yet. ``details.card``
+``sharded`` is the JSON line of ``tools/bench_sharded.py``, run as a
+subprocess as ``bench.py`` runs the JAX tool: the hypothesis split's
+Register on 8 ranks against one process (``{"error": ...}`` when it
+fails). ``details.card``
 names the card and its power limit as ``nvidia-smi`` reports them. Without a
 card the bench raises; ``--device cpu`` runs it on the plain versions (times
 by the host clock, ``platform`` "cpu", no h2d or memory block), which only
@@ -43,6 +46,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -322,6 +326,21 @@ def scan_block(ctx: dict, iters: int, scan: dict = SCAN) -> dict:
     }
 
 
+def sharded_block(device: torch.device) -> dict:
+    """``tools/bench_sharded.py``'s JSON line (bench.py:495-514), on the
+    bench's device; ``{"error": ...}`` when it fails. Its log goes to this
+    process's stderr."""
+    cmd = [sys.executable, "-m", "foundationpose_cpp_tpu_torch.tools.bench_sharded"]
+    if device.type == "cpu":
+        cmd += ["--device", "cpu"]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=600, check=True,
+                              cwd=pathlib.Path(__file__).resolve().parents[1])
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+    except (subprocess.SubprocessError, ValueError, IndexError) as exc:
+        return {"error": f"{type(exc).__name__}: {exc}"[:500]}
+
+
 def run(device=None, hw=(480, 640), crop: int = 160, iters: dict = ITERS,
         net_cfg: networks.NetConfig | None = None, scan: dict = SCAN) -> dict:
     """Every measurement of the bench; returns bench.py's result dict."""
@@ -347,6 +366,7 @@ def run(device=None, hw=(480, 640), crop: int = 160, iters: dict = ITERS,
     h2d = h2d_block(ctx, iters["h2d"])
     stages = stage_ms(ctx, iters["stage"])
     scan_out = scan_block(ctx, iters["scan"], scan)
+    sharded = sharded_block(dev)
     projected = 1e3 / max(h2d["ms_per_frame"], 1e3 / dispatch) if h2d else None
     hbm_peak = max(v["peak_gb"] for v in mem.values()) if mem else None
     macs = networks.flops_per_pair(ctx["net_cfg"])
@@ -371,7 +391,7 @@ def run(device=None, hw=(480, 640), crop: int = 160, iters: dict = ITERS,
             "register_fps_itr2": reg2,
             "stage_ms": stages,
             "scan": scan_out,
-            "sharded": None,
+            "sharded": sharded,
             "hbm_peak_gb": hbm_peak,
             "memory": ({"register_scan32": mem["register_scan32"], "track_once": mem["track_once"],
                         "runtime_stats_gb": torch.cuda.max_memory_reserved(dev) / 2**30}

@@ -36,6 +36,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -221,13 +222,17 @@ class _Backbone(nn.Module):
 
     def forward(
         self, render_input: torch.Tensor, transf_input: torch.Tensor,
-        group_size: int | None = None,
+        group_size: int | None = None, gather=None,
     ) -> dict[str, torch.Tensor]:
         """(N, crop, crop, 6) NHWC pair -> {head name: (N, dim) f32}, computed
         in the dtype of the convolution weights. ``group_size``: the number of
         hypotheses of one scene, when a batch packs several scenes; att_cross
         then attends within each group only (None: the batch is one scene, as
-        at inference)."""
+        at inference). ``gather``: a ``torch.distributed`` process group whose
+        ranks each hold one shard of the scene's hypotheses, in rank order
+        (``parallel.sharding``); att_cross then attends across the gathered
+        set and the heads return this rank's rows (None: the batch is the
+        whole set)."""
         dtype = self.encodeA["conv0"].weight.dtype
         n = render_input.shape[0]
         # siamese encode over a 2N batch (torch.cat([A,B],0) in the original)
@@ -248,14 +253,23 @@ class _Backbone(nn.Module):
             tokens = layer(tokens)
         pooled = tokens.mean(dim=1)  # (N, D)
         if self.att_cross is not None:
+            if gather is not None:
+                # only the pooled (N, D) embeddings cross between ranks: the
+                # pad rows of a padded grid take part, as in the JAX package
+                pooled = all_gather_rows(pooled, gather)
             # one encoder layer attending ACROSS the hypotheses of the scene
             seq = pooled[None] if group_size is None else pooled.reshape(-1, group_size, d)
             pooled = self.att_cross(seq).reshape(pooled.shape)
         pooled = pooled.float()
-        return {
+        out = {
             name: F.linear(pooled, head.weight.float(), head.bias.float())
             for name, head in self.heads.items()
         }
+        if pooled.shape[0] != n:
+            # this rank's hypotheses back out of the gathered set
+            rank = dist.get_rank(gather)
+            out = {name: v[rank * n:(rank + 1) * n] for name, v in out.items()}
+        return out
 
 
     def cast_matmul_weights(self, dtype: torch.dtype) -> "_Backbone":
@@ -268,6 +282,16 @@ class _Backbone(nn.Module):
                 module.weight.data = module.weight.data.to(dtype)
                 module.bias.data = module.bias.data.to(dtype)
         return self
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(n, ...) on each rank of ``group`` -> (n * world, ...) on every rank,
+    in rank order (JAX's ``all_gather(..., tiled=True)``): one
+    ``torch.distributed.all_gather``, in its list form, which NCCL and gloo
+    take on CUDA and CPU tensors alike."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=0)
 
 
 def init_net(kind: str, cfg: NetConfig = NetConfig(), seed: int = 0) -> _Backbone:

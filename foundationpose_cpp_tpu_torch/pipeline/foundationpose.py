@@ -115,13 +115,18 @@ def refine_and_score(
     refine_itr: int,
     cfg: FoundationPoseConfig,
     image_hw: tuple[int, int] | None = None,
+    scorer_group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Refine loop + score render + scorer. Returns (poses (M,4,4), scores (M,))."""
+    """Refine loop + score render + scorer: the part of Register that is
+    parallel over the hypotheses, but for the scorer's cross-attention,
+    which gathers the pooled embeddings over ``scorer_group`` when the
+    poses are one rank's shard (``parallel.sharding``).
+    Returns (poses (M,4,4), scores (M,))."""
     poses = refine_loop(mesh, refiner, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw)
     render_in, transf_in = render_and_transform(
         mesh, poses, rgb, xyz_map, K, cfg.score_crop_ratio, cfg, image_hw
     )
-    out = scorer(render_in, transf_in)
+    out = scorer(render_in, transf_in, gather=scorer_group)
     return poses, out["scores"][:, 0]
 
 
@@ -137,14 +142,19 @@ def register_step(
     refine_itr: int,
     cfg: FoundationPoseConfig,
     image_hw: tuple[int, int] | None = None,
+    hyp_valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The full Register computation. Returns (best_pose, refined_poses,
     scores, ok); best_pose is NaN when the translation guess failed.
-    image_hw: the real (h, w) of a frame padded to a size bucket."""
+    image_hw: the real (h, w) of a frame padded to a size bucket.
+    hyp_valid: (M,) bool, False on the rows that pad the grid
+    (``parallel.sharding.pad_grid``); they score -inf before the argmax."""
     poses, xyz_map, ok = prepare_register(depth, mask, rot_grid, K, cfg, image_hw)
     poses, scores = refine_and_score(
         mesh, refiner, scorer, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw
     )
+    if hyp_valid is not None:
+        scores = torch.where(hyp_valid, scores, float("-inf"))
     best = torch.argmax(scores)  # getMaxScoreIndex (thrust) equivalent
     # index_select keeps the index on the device (poses[best] reads it back)
     pose = poses.index_select(0, best.reshape(1))[0]

@@ -1,1 +1,1 @@
-"""Command-line tools of the port: kernel sweeps and tree comparisons on the card, weight conversion, training."""
+"""Command-line tools of the port: kernel sweeps, tree comparisons and the sharded bench on the card, weight conversion, training."""

@@ -5,9 +5,11 @@
 dict literal (read from its source with ``ast``; importing it would start
 JAX's backend), plus the two the port adds (``details.card``; the pinned
 upload beside the pageable one in ``h2d``, which ``chip_smoke.py`` checks
-on the card, where the block is filled). On the CPU every number it
-measures must be finite, and the blocks that only the card measures are
-null. The run uses narrow nets, a 1 iteration loop, an 80-face sphere in
+on the card, where the block is filled). The ``sharded`` block has the
+keys of the line that the JAX package's ``tools/bench_sharded.py`` prints
+(read with ``ast`` too), which the port's tool of that name prints. On the
+CPU every number it measures must be finite, and the blocks that only the
+card measures are null. The run uses narrow nets, a 1 iteration loop, an 80-face sphere in
 place of the 6016-face one and a small scan, so that the plain render's 252
 views take seconds. ``count_params`` and ``flops_per_pair`` equal the JAX
 package's on the committed weights and configurations.
@@ -31,11 +33,14 @@ PORT_ONLY = {("details", "card"), ("details", "h2d", "pinned_ms_per_frame"),
              ("details", "h2d", "pinned_gib_per_s")}
 CARD_ONLY = {("details", "h2d"), ("details", "hbm_peak_gb"), ("details", "memory"),
              ("details", "card"), ("details", "track_fps_pipelined_projected")}
-NULL = {("details", "sharded"), ("details", "stage_ms", "render_252_corner")}
+NULL = {("details", "stage_ms", "render_252_corner")}
+# dicts whose keys depend on the run: the memory block, the collectives by name
+OPAQUE = {("details", "memory"), ("details", "sharded", "collectives_fused")}
 
 
 def bench_py_keys() -> set[tuple[str, ...]]:
-    """Key paths of the dict literal bench.py prints."""
+    """Key paths of the dict literal bench.py prints, with those of the
+    sharded block from the line tools/bench_sharded.py prints."""
     tree = ast.parse((ROOT / "bench.py").read_text())
     (result,) = [n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
                  and any(getattr(t, "id", None) == "result" for t in n.targets)]
@@ -48,14 +53,17 @@ def bench_py_keys() -> set[tuple[str, ...]]:
                 walk(value, prefix + (key.value,))
 
     walk(result, ())
-    return paths
+    tool = ast.parse((ROOT / "tools" / "bench_sharded.py").read_text())
+    (line,) = [n.args[0] for n in ast.walk(tool) if isinstance(n, ast.Call)
+               and getattr(n.func, "attr", None) == "dumps" and isinstance(n.args[0], ast.Dict)]
+    return paths | {("details", "sharded", key.value) for key in line.keys}
 
 
 def key_paths(d: dict, prefix=()) -> set[tuple[str, ...]]:
     out = set()
     for k, v in d.items():
         out.add(prefix + (k,))
-        if isinstance(v, dict) and prefix + (k,) != ("details", "memory"):
+        if isinstance(v, dict) and prefix + (k,) not in OPAQUE:
             out |= key_paths(v, prefix + (k,))
     return out
 
@@ -103,6 +111,12 @@ def test_bench_values_finite_on_the_cpu(result):
     assert scan["faces_decimated"] <= 150 <= scan["faces_raw"]
     assert result["vs_baseline"] == result["value"] / 2.8
     assert d["track_vs_baseline"] == d["track_fps"] / 220.0
+    sharded = d["sharded"]
+    assert "error" not in sharded, sharded
+    assert sharded["n_devices"] == 8 and sharded["platform"] == "cpu"
+    assert sharded["collectives_fused"] == {"all_gather": 2}
+    times = [sharded[k] for k in ("register_ms_single", "register_ms_sharded", "speedup")]
+    assert all(math.isfinite(v) and v > 0 for v in times), sharded
 
 
 def test_bench_refuses_to_run_without_a_card(monkeypatch):

@@ -483,3 +483,33 @@ def test_refiner_step_on_the_card_trains_every_layer(card):
     x = torch.rand((1, 32, 32, 6), device=card)
     with pytest.raises(RuntimeError, match="forward-only"):
         auto(x, x)
+
+
+def test_sharded_register_on_one_rank_equals_register_step(card, tmp_path):
+    """The hypothesis split at one rank over NCCL, in a rank process of its
+    own (``parallel.ranks``): the house at full width with the committed
+    weights. Its counted Register runs under set_sync_debug_mode("error")
+    and equals register_step on the same inputs at atol 1e-6; it launches
+    K2 twice and K1 three times and issues three all-gathers."""
+    from foundationpose_cpp_tpu_torch.geometry import icosphere
+    from foundationpose_cpp_tpu_torch.parallel import ranks
+
+    house = procedural.textured_house(name="house")
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], np.float32)
+    rgb, depth, mask = synthetic.render_scene(MeshConstants.from_asset(house, card),
+                                              synthetic.default_pose(0.6), K, 480, 640)
+    grid = icosphere.make_rotation_grid()
+    job = dict(device=None, mesh=["textured_house", {"name": "house"}], K=K.tolist(), cfg={},
+               refiner=str(WEIGHTS / "refiner_multi_full.npz"),
+               scorers={"multi": str(WEIGHTS / "scorer_multi_full.npz")},
+               tasks=[{"kind": "register", "scorer": "multi"}])
+    (out,) = ranks.run(job, dict(rgb=rgb, depth=depth, mask=mask, rot_grid=grid,
+                                 hyp_valid=np.ones(252, bool)), 1, tmp_path, timeout=300)
+    meta, a = out["meta"], out["arrays"]
+    (task,) = meta["tasks"]
+    assert meta["backend"] == "nccl" and not meta["jax_imported"]
+    assert task["collectives"] == {"all_gather": 3}
+    assert task["launches"] == {"render_views": 2, "mha_packed_qkv": 3, "mha_whole_head": 0}
+    for name in ("best", "poses", "scores"):
+        np.testing.assert_allclose(a[f"t0_{name}"], a[f"t0_ref_{name}"], rtol=0, atol=1e-6)
+    assert bool(a["t0_ok"]) and np.isfinite(a["t0_best"]).all()
