@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``foundationpose_cpp_tpu_torch/csrc``
 (one nvcc per source, all at once), holds each against its plain PyTorch
-version at the main paths' shapes and times both (with the one PyTorch call
+version at the main paths' shapes (the probe kernel at its tool's two) and
+times both (with the one PyTorch call
 that computes the same function, where there is one); the render and raster
 kernels also run on plane coefficients handed in from the plain version,
 where they must agree on every pixel. Then it drives the
@@ -43,7 +44,11 @@ it and read just after:
 - the trainers on a bank of 4 family objects: one batch and its gradients
   on the card against the CPU, 60 refiner and 20 scorer steps from scratch
   (K2 twice a step, no attention kernel), the committed weights evaluated,
-  the trained refiner saved as bf16 and served.
+  the trained refiner saved as bf16 and served;
+- the perf harnesses at the published widths: the grid-overhead probe
+  (K5), then ``profile_nets``, ``bench_stem``, ``bench_attn`` (with and
+  without ``--encode-ab``) and ``profile_register`` at 4 iterations, each
+  A/B held against its production form.
 
 It checks that each path went through its kernels and found the object.
 Prints the card, a ``{"kernels": [...]}`` line and, last, the device line.
@@ -1586,6 +1591,110 @@ def run_train(torch, np, fp, attention, render, transforms, sweep, K, main, tmp)
     return dict(ms_per_step={k: v["ms"] for k, v in runs.items()}, render=render_rows, evals=evals)
 
 
+STEM_BF16_TOL = (2e-2, 2e-2)  # rtol, atol: the port's bf16 budget for one conv
+STEM_F32_TOL = 1e-4  # atol: tests/test_training.py:171's s2d tolerance
+ENCODE_AB_F32_TOL = 1e-3  # atol: three convs of 2304-4608 f32 terms in another order
+PROBE_LANE_FLOPS = 18  # f32 operations a lane of the probe: coordinates 6, rows 2, adds 10
+
+
+def check_probe_grid(torch, probe_grid):
+    """K5 at the tool's narrow and wide shapes against its plain version, bit
+    for bit; the kernel's time, the plain version's, and one PyTorch call
+    that stores the same bytes from a tile made before it (``copy_`` of the
+    tile expanded: it leaves out the tile's arithmetic and the scratch),
+    beside the stores' bound."""
+    rows = []
+    for name, shape in (("narrow", probe_grid.NARROW), ("wide", probe_grid.WIDE)):
+        got = probe_grid.probe_grid(*shape, "cuda")
+        want = probe_grid.probe_grid_plain(*shape, "cuda")
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"probe_grid {name} {shape} differs from its plain version "
+                                 f"(max |d| {err})")
+        tile = probe_grid.probe_tile(shape[3], "cuda")
+        k_ms = cuda_ms(torch, lambda: probe_grid.probe_grid(*shape, "cuda"), 20)
+        p_ms = cuda_ms(torch, lambda: probe_grid.probe_grid_plain(*shape, "cuda"), 5)
+        l_ms = cuda_ms(torch, lambda: got.copy_(tile.expand(got.shape)), 20)
+        b_ms, b_by = bound(nbytes(got), PROBE_LANE_FLOPS * got.numel() / 8, F32_FLOPS)
+        blocks = shape[0] * shape[1] * shape[2]
+        log(f"probe_grid {name} grid {shape[:3]} x {shape[3]} lanes ({blocks} blocks, "
+            f"{8 * shape[3] * 4} bytes of shared memory a block): max_abs_err={err:.1e} (bit "
+            f"for bit) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(copy_ of the "
+            f"expanded tile)={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {nbytes(got)} bytes)")
+        rows.append(dict(name=name, err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        del got, want
+    return rows
+
+
+def run_profile(torch, np, attention, render, probe_grid):
+    """The perf harnesses at the published widths (N=252, crop 160): the
+    probe tool as it is, then profile_nets, bench_stem, bench_attn (both
+    modes) and profile_register at --iters 4, with the launch counts of K1,
+    K2 and K5 set to 0 just before and read just after; every time finite
+    and positive but the two documented nulls; every stem variant against
+    the direct stem (bf16 at STEM_BF16_TOL, f32 at STEM_F32_TOL) and the
+    split-weight encodeAB against the concat form in f32."""
+    from foundationpose_cpp_tpu_torch.models import networks
+    from foundationpose_cpp_tpu_torch.tools import (
+        bench_attn, bench_stem, probe_grid_overhead, profile_nets, profile_register,
+    )
+    from foundationpose_cpp_tpu_torch.utils.profiling import full_f32
+
+    counted = (attention.mha_packed_qkv, render.render_views, probe_grid.probe_grid)
+    reset_counts(counted)
+    t0 = time.perf_counter()
+    out = {"probe": probe_grid_overhead.run("cuda")}
+    for name, tool in (("nets", profile_nets.run), ("stem", bench_stem.run),
+                       ("attn", bench_attn.run), ("encode_ab", bench_attn.run_encode_ab),
+                       ("register", profile_register.run)):
+        log(f"profile: {name}")
+        out[name] = tool("cuda", iters=4)
+        torch.cuda.empty_cache()
+    counts = dict(zip(("attention", "render", "probe_grid"), counts_of(counted)))
+    log(f"profile: launches {counts} in {time.perf_counter() - t0:.1f} s")
+    if min(counts.values()) < 1:
+        raise AssertionError(f"profile: a kernel of the harnesses was never launched: {counts}")
+
+    probe, attn, ab = out["probe"], out["attn"], out["encode_ab"]
+    times = [v["ms"] for k, v in probe.items() if k != "us_per_block"]
+    times += list(out["nets"].values()) + list(out["stem"]["ms"].values())
+    times += [v for k, v in attn.items() if "diff" not in k]
+    times += [ab["encodeAB concat form"], ab["encodeAB split-weight form"]]
+    reg = out["register"]
+    nulls = [k for k, v in reg.items() if v is None]
+    times += [v for v in reg.values() if v is not None]
+    if sorted(nulls) != sorted(profile_register.NO_PREPASS):
+        raise AssertionError(f"profile_register: nulls {nulls}, want {profile_register.NO_PREPASS}")
+    if not all(np.isfinite(v) and v > 0 for v in times):
+        raise AssertionError(f"profile: times that are not finite and positive: {times}")
+
+    # the stem variants against the direct stem on one 2N batch
+    with torch.inference_mode():
+        conv0 = profile_nets.seeded_net("refiner", torch.device("cuda"), networks.NetConfig(),
+                                        0).encodeA["conv0"]
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        x = profile_nets.nchw(torch.rand((504, 160, 160, 6), generator=gen, device="cuda"))
+        rtol, atol = STEM_BF16_TOL
+        bf16 = bench_stem.excess(conv0.weight, conv0.bias, x.to(torch.bfloat16), rtol)
+        with full_f32():
+            f32 = bench_stem.excess(conv0.weight.float(), conv0.bias.float(), x)
+    log("profile: stem variants against direct, bf16 max(|d| - rtol |direct|) / f32 max |d|: "
+        + ", ".join(f"{k} {bf16[k]:.3e} / {f32[k]:.3e}" for k in bf16))
+    bad = [k for k in bf16 if not (bf16[k] <= atol and f32[k] <= STEM_F32_TOL)]
+    if bad:
+        raise AssertionError(f"stem variants disagree with the direct stem: {bad}")
+    ab_err = ab["max abs diff (f32 inputs)"]
+    if not ab_err <= ENCODE_AB_F32_TOL:
+        raise AssertionError(f"split-weight encodeAB differs from the concat form by {ab_err}")
+    log(f"profile: us a block of the probe {probe['us_per_block']:.4f}; split-weight encodeAB "
+        f"max |d| {ab_err:.3e} (f32); register busy share "
+        f"{reg['FULL register busy share']}")
+    log("profile: " + json.dumps(out))
+    return dict(out, launches=counts)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1601,7 +1710,9 @@ def main() -> int:
         import foundationpose_cpp_tpu_torch as fp
         from foundationpose_cpp_tpu_torch.geometry import transforms
         from foundationpose_cpp_tpu_torch.meshio import procedural as tproc
-        from foundationpose_cpp_tpu_torch.ops import attention, cuda_build, rasterize_tiled, render
+        from foundationpose_cpp_tpu_torch.ops import (
+            attention, cuda_build, probe_grid, rasterize_tiled, render,
+        )
         from foundationpose_cpp_tpu_torch.tools import raster_region_sweep as sweep
         from foundationpose_cpp_tpu_torch.utils import profiling
         from foundationpose_cpp_tpu_torch.utils import synthetic as syn
@@ -1636,6 +1747,7 @@ def main() -> int:
     head_rows = phase("K3", check_whole_head, torch, attention)
     render_rows = phase("K2", check_render, torch, transforms, render, sweep)
     raster_rows = phase("K4", check_rasterize, torch, transforms, rasterize_tiled, render, sweep)
+    probe_rows = phase("K5", check_probe_grid, torch, probe_grid)
     launches = phase("main path", run_main_path, torch, np, fp, tproc, syn, attention, render,
                      rasterize_tiled, K)
     # the serving paths around Track and Register, each with the counts of
@@ -1665,6 +1777,7 @@ def main() -> int:
               pathlib.Path(tmp))
         phase("train", run_train, torch, np, fp, attention, render, transforms, sweep, K,
               launches, pathlib.Path(tmp))
+    profile = phase("profile", run_profile, torch, np, attention, render, probe_grid)
 
     def row(r):
         return {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -1690,6 +1803,11 @@ def main() -> int:
              replaces="foundationpose_cpp_tpu/ops/rasterize_pallas.py:66",
              launches=launches["raster_launches"], max_abs_err=max(r["err"] for r in raster_rows),
              **row(dict(raster_rows[0], library_ms=None))),
+        dict(name="probe_grid", route="cuda",
+             source="foundationpose_cpp_tpu_torch/csrc/probe_grid.cu",
+             replaces="tools/probe_grid_overhead.py:62",
+             launches=profile["launches"]["probe_grid"],
+             max_abs_err=max(r["err"] for r in probe_rows), **row(probe_rows[0])),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

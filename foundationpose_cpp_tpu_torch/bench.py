@@ -71,6 +71,7 @@ from foundationpose_cpp_tpu_torch.pipeline.renderer import (
 )
 from foundationpose_cpp_tpu_torch.utils import synthetic
 from foundationpose_cpp_tpu_torch.utils.device import resolve_device
+from foundationpose_cpp_tpu_torch.utils.profiling import stacked_ms
 
 # the reference's RTX 4060 numbers (BASELINE.md, SURVEY.md section 6)
 BASELINE_REGISTER_FPS, BASELINE_TRACK_FPS = 2.8, 220.0
@@ -98,20 +99,7 @@ def sync(device: torch.device) -> None:
 def device_ms(fn, iters: int, device: torch.device) -> float:
     """Mean time of fn() over iters calls after one warm-up call: CUDA
     events on the card, the host clock on the CPU."""
-    fn()
-    sync(device)
-    if device.type == "cuda":
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / iters
+    return stacked_ms(lambda _: fn(), [range(iters)], device)
 
 
 def setup(device, hw=(480, 640), crop: int = 160, net_cfg: networks.NetConfig | None = None) -> dict:

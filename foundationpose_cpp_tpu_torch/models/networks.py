@@ -104,6 +104,31 @@ class Conv(nn.Module):
                         self.stride, self.padding)
 
 
+def conv0_s2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The 7x7/stride-2 stem conv as a space-to-depth 4x4/stride-1 conv.
+
+    Counterpart of the JAX package's ``networks._conv0_s2d``: equal to
+    ``F.conv2d(x, weight, bias, 2, 3)`` on an (N, C, H, W) ``x`` with even H
+    and W and an (O, C, 7, 7) ``weight`` (the layout of ``Conv``), in x's
+    dtype. out[o] = sum_i xpad[2o + i] w[i], i in 0..6, pad 3; writing the
+    padded row as 2(o + d) + r (block d = o..o+3, parity r) gives i = 2d + r,
+    a VALID 4-tap conv over 2x2-blocked pixels, with an 8th tap of zeros.
+    Nothing on the main path calls it: it is the A/B that
+    ``tools/bench_stem.py`` and ``tools/bench_attn.py`` time against the
+    direct stem.
+    """
+    n, c, h, w = x.shape
+    o = weight.shape[0]
+    xp = F.pad(x, (3, 3, 3, 3))  # (N, C, H+6, W+6)
+    hp, wp = h + 6, w + 6
+    # channel (r, s, c) of block (y, x) = xpad[c, 2y + r, 2x + s]
+    xb = (xp.reshape(n, c, hp // 2, 2, wp // 2, 2).permute(0, 3, 5, 1, 2, 4)
+          .reshape(n, 4 * c, hp // 2, wp // 2))
+    w8 = F.pad(weight, (0, 1, 0, 1))  # 7 -> 8 taps
+    wb = w8.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
+    return F.conv2d(xb, wb.to(x.dtype), bias.to(x.dtype))
+
+
 class ResBlock(nn.Module):
     """ResnetBasicBlock: conv-bn-relu-conv-bn + skip, then relu."""
 

@@ -116,3 +116,42 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def stacked_ms(fn, stacks, device: torch.device, warmup: int = 1) -> float:
+    """Mean milliseconds of ``fn(*(s[i] for s in stacks))`` over every i of
+    the stacks: the JAX harnesses' scan over distinct stacked inputs, so no
+    call reuses another's input. Each of ``warmup`` calls on input 0 comes
+    first (cuDNN picks its algorithms for a shape on its first call). On the
+    card the calls are queued between two CUDA events, then one synchronize;
+    on the CPU the host clock times them."""
+    first = [s[0] for s in stacks]
+    for _ in range(warmup):
+        fn(*first)
+    iters = len(stacks[0])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            fn(*(s[i] for s in stacks))
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*(s[i] for s in stacks))
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+@contextlib.contextmanager
+def full_f32():
+    """cuDNN convolutions in full f32 within the block (its default rounds
+    f32 inputs to TF32); cuBLAS matrix products keep PyTorch's default,
+    full f32."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before

@@ -24,7 +24,7 @@ from foundationpose_cpp_tpu_torch import create_foundationpose_model
 from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
 from foundationpose_cpp_tpu_torch.geometry import transforms
 from foundationpose_cpp_tpu_torch.meshio import procedural
-from foundationpose_cpp_tpu_torch.ops import attention, rasterize_tiled, render
+from foundationpose_cpp_tpu_torch.ops import attention, probe_grid, rasterize_tiled, render
 from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
 from foundationpose_cpp_tpu_torch.utils import synthetic
 
@@ -513,3 +513,15 @@ def test_sharded_register_on_one_rank_equals_register_step(card, tmp_path):
     for name in ("best", "poses", "scores"):
         np.testing.assert_allclose(a[f"t0_{name}"], a[f"t0_ref_{name}"], rtol=0, atol=1e-6)
     assert bool(a["t0_ok"]) and np.isfinite(a["t0_best"]).all()
+
+
+@pytest.mark.parametrize("shape", [probe_grid.NARROW, probe_grid.WIDE, (3, 2, 7, 96),
+                                   (1, 1, 1, probe_grid.MAX_LANES)])
+def test_probe_grid_kernel_matches_plain_bit_for_bit(card, shape):
+    """The grid-overhead probe at the tool's two shapes (the wide one asks
+    for 160 KB of shared memory a block), a ragged width and the widest."""
+    before = probe_grid.probe_grid.launches
+    got = probe_grid.probe_grid(*shape, card)
+    assert probe_grid.probe_grid.launches == before + 1
+    want = probe_grid.probe_grid_plain(*shape, card)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -254,16 +254,23 @@ def test_texture_formats_and_fallbacks(tmp_path, monkeypatch):
         tload.load_mesh("c", str(obj))
 
 
+PERF_MODULES = ("ops.probe_grid", "tools.probe_grid_overhead", "tools.profile_nets",
+                "tools.bench_stem", "tools.bench_attn", "tools.profile_register")
+
+
 def test_port_imports_no_pil_cv2_or_jax():
-    """Every port module imports with PIL and cv2 blocked, and none of PIL,
+    """Every port module imports with PIL, cv2 and JAX blocked (the probe
+    kernel's module and the perf harnesses among them), and none of PIL,
     cv2, JAX or the JAX package ends up loaded."""
     code = (
         "import sys\n"
-        "for m in ('PIL', 'PIL.Image', 'cv2'): sys.modules[m] = None\n"
+        "for m in ('PIL', 'PIL.Image', 'cv2', 'jax', 'jax.numpy'): sys.modules[m] = None\n"
         "import importlib, pkgutil, foundationpose_cpp_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert 'foundationpose_cpp_tpu_torch.demo_dataset' in names, names\n"
+        f"want = {['foundationpose_cpp_tpu_torch.' + m for m in PERF_MODULES]!r}\n"
+        "assert set(want) <= set(names), sorted(set(want) - set(names))\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (m in "
         "('jax', 'PIL', 'cv2', 'foundationpose_cpp_tpu') or m.startswith(('jax.', 'PIL.', "
         "'cv2.', 'foundationpose_cpp_tpu.')))]\n"
