@@ -39,11 +39,14 @@ it and read just after:
   graph's replay against its function run eagerly (max |d| 0), its
   launches a call, no host sync in a replay, capture ms, node count, ms a
   call graphed and eager, and the memory the graphs hold in one pool and
-  in a pool each;
+  in a pool each; a Register with a bool mask after a uint8 one, and a
+  replay after 300 other constants, each against eager (the two faults of
+  the first programs);
 - the hypothesis split (``parallel.sharding``) in rank processes: Register
-  on the house frame at W=1 over NCCL (equal to ``register_step``, with no
-  host sync), at W=2 and W=8 over gloo with every rank on this card, and
-  the eight cubes' ``track_batch`` at W=2, each against the single process;
+  on the house frame at W=1 over NCCL as a captured program (equal to its
+  eager run and to ``register_step``, with no host sync), at W=2 and W=8
+  over gloo with every rank on this card, and the eight cubes'
+  ``track_batch`` at W=2, each against the single process;
 - the port bench (``foundationpose_cpp_tpu_torch.bench``), whose JSON line
   it prints;
 - model ingest: the published-structure refiner and scorer at the published
@@ -51,8 +54,13 @@ it and read just after:
   forward on 252 crop pairs in f32 and bf16, saved, reloaded and served;
 - the trainers on a bank of 4 family objects: one batch and its gradients
   on the card against the CPU, 60 refiner and 20 scorer steps from scratch
-  (K2 twice a step, no attention kernel), the committed weights evaluated,
-  the trained refiner saved as bf16 and served;
+  through the step programs (K2 twice a step, no attention kernel), the
+  committed weights evaluated, the trained refiner saved as bf16 and
+  served; then, in cuDNN's default and deterministic modes, 20 graphed
+  steps of each trainer against 20 eager steps (eager against eager
+  first; held bit for bit in deterministic mode), their ms a step,
+  capture, nodes, kernel time and largest kernels, peak memory, and no
+  host sync once every object's program is captured;
 - the perf harnesses at the published widths: the grid-overhead probe
   (K5), then ``profile_nets``, ``bench_stem``, ``bench_attn`` (with and
   without ``--encode-ab``) and ``profile_register`` at 4 iterations, each
@@ -66,6 +74,8 @@ it.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -1180,13 +1190,7 @@ def host_ms(torch, fn, calls: int) -> list[float]:
 def kernel_ms(torch, profiling, fn, calls: int) -> float | None:
     """The card's kernel time a call of fn() under torch.profiler, None when
     the profiler saw no device activity."""
-    with tempfile.TemporaryDirectory() as tmp, profiling.trace(tmp) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    run = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in run) / calls / 1e3 if run else None
+    return kernel_split(torch, profiling, fn, calls)[0]
 
 
 def check_program(torch, np, profiling, label, program, args, calls, busy=False) -> dict:
@@ -1290,6 +1294,39 @@ def graph_memory(torch, fp, house, K, frame, shared: bool) -> dict:
     return out
 
 
+def check_program_faults(torch, np, model, frame, up) -> None:
+    """The two faults of the first programs, on the house Register at
+    refine_itr 1: a bool mask after a uint8 one is served by the same
+    program and equals the eager Register; after 300 other constants
+    (``transforms._constant``; a bounded cache would free the program's
+    own and hand their memory to these), a replay equals eager."""
+    from foundationpose_cpp_tpu_torch.geometry import transforms
+
+    rgb, depth, mask = frame
+    key = ("register", "house", (480, 640), 1, False)
+    program = model._register_cache[key]
+    keys = list(model._register_cache)
+    with torch.inference_mode():
+        want = program.fn(*up)
+    got = model.register_with_scores(rgb, depth, mask > 0, "house")
+    delta = max(float(np.abs(g - w.cpu().numpy()).max()) for g, w in zip(got, want))
+    same = model._register_cache[key] is program and list(model._register_cache) == keys
+    log(f"graphs fault pin, mask dtype: register_with_scores with a bool mask after uint8 ones, "
+        f"the same program {same}, vs the eager Register max|d|={delta:.3e}")
+    if delta != 0.0 or not same:
+        raise AssertionError(f"a bool mask: max|d| {delta}, same program {same}")
+    for i in range(300):
+        transforms._constant((float(i) + 0.25, -1.0), model.device)
+    with torch.inference_mode():
+        got = program(*up)
+        want = program.fn(*up)
+    delta = tree_max_abs(got, want)
+    log(f"graphs fault pin, constants: a replay after 300 other constants vs eager "
+        f"max|d|={delta:.3e}")
+    if delta != 0.0:
+        raise AssertionError(f"a replay after 300 other constants differs by {delta}")
+
+
 def run_graphs(torch, np, fp, profiling, main, multi, K):
     """Every program key of the pipeline on the card, each against its
     function run eagerly on the same inputs (``check_program``): Register at
@@ -1323,6 +1360,7 @@ def run_graphs(torch, np, fp, profiling, main, multi, K):
         f"max|d|={delta:.3e}")
     if delta != 0.0:
         raise AssertionError(f"register_with_scores differs from the eager Register by {delta}")
+    check_program_faults(torch, np, model, (rgb, depth, mask), up)
     model.track(rgb, depth, main["pose"], "house")
     rows["track"] = check_program(
         torch, np, profiling, "track",
@@ -1430,9 +1468,12 @@ JAX_SHARD_SCORE_TOL = (2e-2, 2e-3)  # rtol, atol
 SHARD_BF16_ERR_FACTOR = 2.0
 
 
-def check_ranks(res, backend: str, want_launches: dict, want_gathers: int, what: str) -> None:
+def check_ranks(res, backend: str, want_launches: dict, want_gathers: int, what: str,
+                graphed: bool = False) -> None:
     """Every rank: its backend, no JAX, its kernel launches and its
-    collectives (all-gathers only) in the counted run."""
+    collectives (all-gathers only) in the counted run. ``graphed``: the
+    counted run replays a program, which issues no collective from Python;
+    its warm-up ran the function and captured it, issuing each twice."""
     for out in res:
         meta = out["meta"]
         (task,) = meta["tasks"]
@@ -1440,10 +1481,13 @@ def check_ranks(res, backend: str, want_launches: dict, want_gathers: int, what:
             raise AssertionError(f"{what}: rank {meta['rank']} ran {meta['backend']} (want "
                                  f"{backend}), jax imported: {meta['jax_imported']}")
         launches = {k: v for k, v in task["launches"].items() if v}
-        if launches != want_launches or task["collectives"] != {"all_gather": want_gathers}:
+        gathers = ({}, {"all_gather": 2 * want_gathers}) if graphed else (
+            {"all_gather": want_gathers}, task["warmup_collectives"])
+        if launches != want_launches or (task["collectives"], task["warmup_collectives"]) != gathers:
             raise AssertionError(f"{what}: rank {meta['rank']} launched {task['launches']} and "
-                                 f"issued {task['collectives']}, want {want_launches} and "
-                                 f"{want_gathers} all_gather")
+                                 f"issued {task['collectives']} (warm-up "
+                                 f"{task['warmup_collectives']}), want {want_launches} and "
+                                 f"{gathers}")
 
 
 def run_sharded(torch, np, fp, main, multi, K, tmp):
@@ -1452,8 +1496,10 @@ def run_sharded(torch, np, fp, main, multi, K, tmp):
     joins no group), at full width on the main path's house frame with the
     committed weights (the scorer has att_cross):
 
-    - W=1 over NCCL: the sharded Register equals ``register_step`` at atol
-      1e-6, its counted run made under ``set_sync_debug_mode("error")``;
+    - W=1 over NCCL: the sharded Register is a captured program (its
+      all-gathers in the graph) that equals its own eager run bit for bit
+      and ``register_step`` at atol 1e-6, its counted run (a replay) made
+      under ``set_sync_debug_mode("error")``;
     - W=2 and W=8, every rank on cuda:0 over gloo (NCCL refuses two ranks on
       one device), W=8 padding 252 to 256, against rank 0's ``register_step``
       on the padded grid with ``hyp_valid`` and, here, the same Register
@@ -1517,11 +1563,12 @@ def run_sharded(torch, np, fp, main, multi, K, tmp):
                                   hyp_valid=valid), n, tmp / f"w{n}", timeout=300)
         wall = time.perf_counter() - t0
         backend = "nccl" if n <= torch.cuda.device_count() else "gloo"
-        check_ranks(res, backend, {"render_views": 2, "mha_packed_qkv": 3}, 3, f"sharded W={n}")
+        check_ranks(res, backend, {"render_views": 2, "mha_packed_qkv": 3}, 3, f"sharded W={n}",
+                    graphed=n == 1)
         a, (task,) = res[0]["arrays"], res[0]["meta"]["tasks"]
         for r in res[1:]:
             if not all(np.array_equal(v, a[k]) for k, v in r["arrays"].items()
-                       if not k.startswith("t0_ref")):
+                       if not k.startswith(("t0_ref", "t0_eager"))):
                 raise AssertionError(f"sharded W={n}: rank {r['meta']['rank']} returned "
                                      f"other poses or scores than rank 0")
         scores, single = a["t0_scores"][valid], a["t0_ref_scores"][valid]
@@ -1544,6 +1591,20 @@ def run_sharded(torch, np, fp, main, multi, K, tmp):
         if adds >= 0.1 * house.diameter:
             raise AssertionError(f"sharded W={n}: ADD-S {adds:.4f} m >= 0.1 x diameter")
         if n == 1:
+            names = ("best", "poses", "scores", "ok")
+            eager_d = max(float(np.abs(a[f"t0_{k}"].astype(np.float64)
+                                       - a[f"t0_eager_{k}"]).max()) for k in names)
+            (program,) = task["programs"]
+            log(f"  W=1 as a program: key {tuple(program['key'])}, capture "
+                f"{program['capture_ms']:.1f} ms, {program['nodes']} nodes; replay vs its eager "
+                f"run max|d|={eager_d:.3e}; register_ms graphed {task['ms']:.2f} eager "
+                f"{task['eager_ms']:.2f} register_step eager {task['ref_ms']:.2f} (rank 0, host "
+                f"clock, 3 reps); the replay under sync debug 'error'; all_gathers in the "
+                f"warm-up (run + capture) {task['warmup_collectives']}, in a replay "
+                f"{task['collectives'] or 'none from Python'}")
+            if not all(np.array_equal(a[f"t0_{k}"], a[f"t0_eager_{k}"]) for k in names):
+                raise AssertionError(f"sharded W=1: the program differs from its eager run by "
+                                     f"{eager_d}")
             if max(pose_d, score_d, float(np.abs(a["t0_best"] - a["t0_ref_best"]).max())) > 1e-6:
                 raise AssertionError(f"sharded W=1 differs from register_step: poses {pose_d}, "
                                      f"scores {score_d}")
@@ -1726,7 +1787,153 @@ def run_ingest(torch, np, fp, attention, render, K, main, tmp):
     return dict(register_launches=counts)
 
 
-def run_train(torch, np, fp, attention, render, transforms, sweep, K, main, tmp):
+TRAIN_PROGRAM_STEPS = 20
+TRAIN_PROGRAM_WARMUP = 25  # the learning rate moves on every one of the 20 steps
+
+
+def train_twenty(torch, programs, tr, multi, bank, cfg, net_cfg, tcfg, kind, graphed,
+                 sync_check=False) -> dict:
+    """TRAIN_PROGRAM_STEPS steps of the multi trainer of ``kind`` (its
+    default seed) from seeded weights: through the step programs, or
+    (``graphed`` False) with every program called eagerly. With
+    ``sync_check`` the steps after the last object's capture run under
+    ``set_sync_debug_mode("error")``. Returns the net, the losses, the
+    programs made, the wall ms, the steps run under the sync check and the
+    peak allocated GB."""
+    made, losses, checked = [], [], []
+
+    class Recorded(programs.Program):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    def on_step(i, loss):
+        losses.append(loss)
+        if checked:
+            checked.append(i)
+        elif sync_check and len(made) == bank.n_objects:
+            torch.cuda.set_sync_debug_mode("error")
+            checked.append(i)
+
+    saved = tr.Program
+    tr.Program = Recorded
+    kcfg = dataclasses.replace(net_cfg, cross_attention=kind == "scorer")
+    train = multi.train_refiner_multi if kind == "refiner" else multi.train_scorer_multi
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.nullcontext() if graphed else programs.eager():
+            net = train(bank, cfg, kcfg, tcfg, steps=TRAIN_PROGRAM_STEPS,
+                        seed=0 if kind == "refiner" else 1, on_step=on_step)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        tr.Program = saved
+    return dict(net=net, losses=torch.stack(losses), programs=made,
+                wall_ms=(time.perf_counter() - t0) * 1e3, checked=len(checked) - 1,
+                peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def params_max_abs(a, b) -> float:
+    sa, sb = a.state_dict(), b.state_dict()
+    return max(float((sa[k].double() - sb[k].double()).abs().max()) for k in sa)
+
+
+def kernel_split(torch, profiling, fn, calls: int, top: int = 6):
+    """(the card's kernel ms a call of fn() under torch.profiler, the
+    ``top`` kernels by time as (name, ms a call)); (None, []) when the
+    profiler saw no device activity."""
+    with tempfile.TemporaryDirectory() as tmp, profiling.trace(tmp) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    run = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    if not run:
+        return None, []
+    run.sort(key=lambda e: -e.self_device_time_total)
+    return (sum(e.self_device_time_total for e in run) / calls / 1e3,
+            [(e.key[:48], e.self_device_time_total / calls / 1e3) for e in run[:top]])
+
+
+def run_train_programs(torch, np, profiling, render, bank, cfg, net_cfg, tcfg) -> dict:
+    """The trainers' step as a program, at batch 64 on the bank, for the
+    refiner and the scorer, in cuDNN's default mode and in its deterministic
+    mode: in each, two eager runs of 20 steps from the same seed (eager
+    against eager), then 20 graphed steps against them (max |d| of the
+    parameters and the losses; in deterministic mode 0 to pass, or the
+    eager spread where that is not 0), with K2 launched twice a step and no
+    host sync once every object's program is captured. Then, on one
+    object's program, ms a step replayed and run eagerly (host clock, three
+    windows of 5), its capture ms and node count, its kernel time under
+    torch.profiler with the busy share and the largest kernels, and the
+    peak allocated memory of the graphed run."""
+    from foundationpose_cpp_tpu_torch.pipeline import programs
+    from foundationpose_cpp_tpu_torch.training import multi
+    from foundationpose_cpp_tpu_torch.training import synthetic as tr
+
+    tcfg = dataclasses.replace(tcfg, warmup_steps=TRAIN_PROGRAM_WARMUP)
+    deterministic = torch.backends.cudnn.deterministic
+    out = {}
+    try:
+        for kind, mode in (("refiner", False), ("refiner", True), ("scorer", False),
+                           ("scorer", True)):
+            torch.backends.cudnn.deterministic = mode
+            mode_name = "deterministic" if mode else "default"
+            args = (torch, programs, tr, multi, bank, cfg, net_cfg, tcfg, kind)
+            eager = [train_twenty(*args, graphed=False) for _ in range(2)]
+            render.render_views.launches = 0
+            graphed = train_twenty(*args, graphed=True, sync_check=True)
+            k2 = render.render_views.launches
+            spread = params_max_abs(eager[0]["net"], eager[1]["net"])
+            spread_loss = float((eager[0]["losses"] - eager[1]["losses"]).abs().max())
+            delta = params_max_abs(graphed["net"], eager[0]["net"])
+            delta_loss = float((graphed["losses"] - eager[0]["losses"]).abs().max())
+            program = graphed["programs"][0]
+            step = program.fn, program._inputs
+            graphed_ms = host_ms(torch, lambda: program(*step[1]), 5)
+            eager_ms = host_ms(torch, lambda: step[0](*step[1]), 5)
+            kernels, largest = kernel_split(torch, profiling, lambda: program(*step[1]), 5)
+            busy = (f"{kernels:.2f} ms of kernels a step, busy {kernels / min(graphed_ms):.1%} of "
+                    f"the fastest window; largest: "
+                    + ", ".join(f"{name} {ms:.2f}" for name, ms in largest)
+                    if kernels is not None
+                    else "kernel time not measured (no device activity seen)")
+            log(f"train (e): {kind} step as a program, cuDNN {mode_name} mode, batch {tcfg.batch}, "
+                f"{len(graphed['programs'])} programs {[p.key for p in graphed['programs']]}: "
+                f"{TRAIN_PROGRAM_STEPS} graphed vs eager steps max|d| parameters {delta:.3e} "
+                f"losses {delta_loss:.3e} (eager vs eager: {spread:.3e}, {spread_loss:.3e}); "
+                f"K2 launches {k2} (want {2 * TRAIN_PROGRAM_STEPS}); {graphed['checked']} steps "
+                f"under sync debug 'error' after the last capture; wall of the 20 steps graphed "
+                f"{graphed['wall_ms']:.0f} ms (captures included) eager {eager[0]['wall_ms']:.0f} "
+                f"ms; one program {program.key}: capture {program.capture_ms:.1f} ms, "
+                f"{program.nodes} nodes, captures of all "
+                f"{[round(p.capture_ms, 1) for p in graphed['programs']]} ms; ms a step graphed "
+                f"{np.median(graphed_ms):.2f} (windows {'/'.join(f'{v:.2f}' for v in graphed_ms)}) "
+                f"eager {np.median(eager_ms):.2f} (windows "
+                f"{'/'.join(f'{v:.2f}' for v in eager_ms)}); {busy}; peak allocated GB graphed "
+                f"{graphed['peak_gb']:.2f} eager {eager[0]['peak_gb']:.2f}")
+            if k2 != 2 * TRAIN_PROGRAM_STEPS or graphed["checked"] < 1:
+                raise AssertionError(f"train (e): {kind} launched K2 {k2} times, "
+                                     f"{graphed['checked']} steps sync-checked")
+            out[(kind, mode_name)] = dict(graphed_ms=float(np.median(graphed_ms)),
+                                          eager_ms=float(np.median(eager_ms)), max_abs=delta)
+            if not mode:
+                continue  # eager steps there differ run to run: nothing to hold
+            bound = (spread, spread_loss)
+            if bound != (0.0, 0.0):
+                log(f"train (e): {kind}: eager steps are not reproducible in deterministic mode "
+                    f"here; graphed is held to the eager-to-eager spread {bound}")
+            if delta > bound[0] or delta_loss > bound[1]:
+                raise AssertionError(f"train (e): {kind} graphed steps differ from eager by "
+                                     f"{delta} (losses {delta_loss}), bound {bound}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def run_train(torch, np, fp, attention, render, transforms, sweep, profiling, K, main, tmp):
     """The trainers at the published NetConfig on a bank of 4 family objects:
     (a) one fixed refiner batch of 8 built on the card (K2) and on the CPU
     (plain render), and the gradients of refiner_loss on both from that batch
@@ -1823,6 +2030,7 @@ def run_train(torch, np, fp, attention, render, transforms, sweep, K, main, tmp)
             raise AssertionError(f"train (b): {kind} launched {counts}, want (0, 0, {2 * steps})")
     if not runs["refiner"]["losses"][-10:].mean() < runs["refiner"]["losses"][:10].mean():
         raise AssertionError("train (b): the refiner loss did not fall over 60 steps")
+    programs = run_train_programs(torch, np, profiling, render, bank, cfg, net_cfg, tcfg)
 
     # (c) evaluation of the committed weights
     report = _json.loads((ROOT / "weights" / "eval_multi_full.json").read_text())
@@ -1863,7 +2071,8 @@ def run_train(torch, np, fp, attention, render, transforms, sweep, K, main, tmp)
         f"{bool(np.isfinite(pose).all())}; launches (render, attention)={counts}")
     if counts != (2, 3) or not np.isfinite(pose).all():
         raise AssertionError(f"train (d): Register launched {counts} or gave a non-finite pose")
-    return dict(ms_per_step={k: v["ms"] for k, v in runs.items()}, render=render_rows, evals=evals)
+    return dict(ms_per_step={k: v["ms"] for k, v in runs.items()}, render=render_rows, evals=evals,
+                programs=programs)
 
 
 STEM_BF16_TOL = (2e-2, 2e-2)  # rtol, atol: the port's bf16 budget for one conv
@@ -2051,8 +2260,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase("ingest", run_ingest, torch, np, fp, attention, render, K, launches,
               pathlib.Path(tmp))
-        phase("train", run_train, torch, np, fp, attention, render, transforms, sweep, K,
-              launches, pathlib.Path(tmp))
+        phase("train", run_train, torch, np, fp, attention, render, transforms, sweep, profiling,
+              K, launches, pathlib.Path(tmp))
     profile = phase("profile", run_profile, torch, np, attention, render, probe_grid)
 
     def row(r):

@@ -19,6 +19,9 @@ The constant tensors these functions combine with their inputs are built
 from Python floats once per (values, device) by ``_constant`` and kept, so
 a call only launches work on tensors already on the device: building one
 from a Python list on the card is a blocking copy that drains the stream.
+They are kept for the life of the process: a captured CUDA graph
+(``pipeline/programs.py``) reads them by address, and none of them may be
+freed while a graph that read it can still replay.
 """
 
 from __future__ import annotations
@@ -28,12 +31,14 @@ import functools
 import torch
 
 
-@functools.lru_cache(maxsize=256)
+@functools.cache
 def _constant(values: tuple, device: torch.device) -> torch.Tensor:
     """f32 tensor of the nested tuple ``values`` on ``device``, built on the
     first call for these values and device and returned from then on. Built
     outside inference mode, so it serves autograd-recording callers too;
-    callers never write to it."""
+    callers never write to it. The cache is unbounded on purpose: an entry
+    is at most 16 floats, and evicting one would leave a live graph reading
+    freed memory."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=torch.float32, device=device)
 

@@ -19,8 +19,9 @@ there are fewer cards than ranks) and runs every task:
 - ``{"kind": "track", "steps": S}``: ``make_sharded_track_batch`` chained S
   times from the poses.
 
-On the card a task runs once to warm up. Then one counted run, for which
-the rank records the launches of the render and attention kernels and every
+On the card a task runs once to warm up (``warmup_collectives`` counts
+its collectives). Then one counted run, for which the rank records the
+launches of the render and attention kernels and every
 ``torch.distributed`` collective it issued; under NCCL that run is made
 under ``torch.cuda.set_sync_debug_mode("error")``, so that a step that
 waits for the card raises. ``"reps": R`` times R more runs (host clock, the
@@ -28,6 +29,13 @@ card synchronised). Rank 0 then runs the single-process function
 (``register_step`` with ``hyp_valid``, or ``track_step``) on the same
 inputs as the reference (``ref_*`` arrays), timed likewise, while the
 others wait.
+
+At W=1 on the card the builders' functions are captured programs: the
+warm-up runs the task and captures it (so it issues each collective
+twice), and the counted run replays it, issuing no collective from Python.
+Such a rank also runs the task with its programs called eagerly
+(``eager_*`` arrays, ``eager_ms``) and records each program's key,
+capture time and node count (``programs``).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from foundationpose_cpp_tpu_torch.meshio import procedural
 from foundationpose_cpp_tpu_torch.models import convert_jax
 from foundationpose_cpp_tpu_torch.ops import attention, render
 from foundationpose_cpp_tpu_torch.parallel import sharding
+from foundationpose_cpp_tpu_torch.pipeline import programs
 from foundationpose_cpp_tpu_torch.pipeline.foundationpose import register_step, track_step
 from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
 
@@ -226,20 +235,29 @@ def _run_task(task: dict, hg: sharding.HypGroup, ctx: dict) -> tuple[dict, dict]
                                                   data["depth"], p, K, 1, cfg))
         names = ("poses",)
 
+    meta = {"kind": task["kind"]}
     if dev.type == "cuda":
-        run()  # warm-up: cuDNN plans, the communicators
+        with count_collectives() as collectives:
+            run()  # warm-up: cuDNN plans, the communicators, the captures
+        meta["warmup_collectives"] = dict(collectives)
         torch.cuda.synchronize(dev)
     for fn in KERNELS.values():
         fn.launches = 0
     with count_collectives() as collectives, no_host_sync(hg.backend == "nccl"):
         got = run()
-    meta = {"kind": task["kind"], "collectives": dict(collectives),
-            "launches": {name: fn.launches for name, fn in KERNELS.items()}}
+    meta.update(collectives=dict(collectives),
+                launches={name: fn.launches for name, fn in KERNELS.items()})
     arrays = {name: t.cpu().numpy() for name, t in zip(names, got)}
     reps = task.get("reps", 0)
     dist.barrier()
     if reps:
         meta["ms"] = _timed(run, reps, dev)[1]
+    if dev.type == "cuda" and sharded.programs:
+        meta["programs"] = [dict(key=list(p.key), capture_ms=p.capture_ms, nodes=p.nodes)
+                            for p in sharded.programs.values()]
+        with programs.eager():
+            eager, meta["eager_ms"] = _timed(run, reps, dev)
+        arrays.update({f"eager_{name}": t.cpu().numpy() for name, t in zip(names, eager)})
     if hg.rank == 0:
         if dev.type == "cuda":
             reference()

@@ -16,6 +16,15 @@ instances the same way and gathers the refined poses once.
 with identity rotations and a ``valid`` mask; the pad rows score -inf
 before the argmax. As in the JAX package they still take part in the
 scorer's cross-attention.
+
+JAX jits both builders' functions and retraces them for each new argument
+shape. The port does the same where a CUDA graph can hold the whole
+function: one rank (W=1), over NCCL on its card, keeps a
+``pipeline.programs.Program`` for each argument signature, captured once
+with its all-gathers and replayed (on the CPU the programs run eagerly).
+With more ranks the builders run eagerly: gloo's collectives cannot be
+captured, and NCCL capture needs a card for each rank, which a one-card
+host does not have.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from foundationpose_cpp_tpu_torch.pipeline.foundationpose import (
     refine_and_score,
     refine_loop,
 )
+from foundationpose_cpp_tpu_torch.pipeline.programs import Program
 from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
 from foundationpose_cpp_tpu_torch.utils.device import resolve_device
 
@@ -109,6 +119,25 @@ def _shard(group: HypGroup, n: int) -> slice:
     return slice(group.rank * m, (group.rank + 1) * m)
 
 
+def _programs(group: HypGroup) -> dict | None:
+    """A builder's programs, {(nets..., key): Program}, when its function
+    runs as programs: one rank over NCCL, or on the CPU (where a Program
+    calls its function eagerly); None (eager) for more ranks."""
+    if group.size == 1 and (group.backend == "nccl" or group.device.type == "cpu"):
+        return {}
+    return None
+
+
+def _call(programs: dict, device, body, nets: tuple, key: tuple, args: tuple):
+    """``body(*nets, *args)`` through the program of (nets, key), made on
+    first use; the program's closure holds the nets, whose parameters its
+    graph reads by address."""
+    program = programs.get((*nets, key))
+    if program is None:
+        program = programs[(*nets, key)] = Program(lambda *a: body(*nets, *a), key, device)
+    return program(*args)
+
+
 def make_sharded_register(
     mesh_consts: MeshConstants,
     group: HypGroup,
@@ -125,21 +154,19 @@ def make_sharded_register(
     ``[rank * M / size, (rank + 1) * M / size)``; three all-gathers a
     Register with a cross-attention scorer (pooled embeddings, poses,
     scores), two without.
+
+    At W=1 over NCCL ``fn`` keeps one program for each (refiner, scorer,
+    M, frame (h, w)), under the key ``("sharded_register", M, (h, w),
+    refine_itr)``: its first call runs the Register and captures it with
+    its all-gathers, later calls replay it. ``fn.programs`` holds them
+    (None when ``fn`` runs eagerly: W>1, see the module docstring). The mask
+    is taken as ``mask > 0``, all that the Register reads of it.
     """
     K = torch.as_tensor(K, dtype=torch.float32, device=group.device)
+    programs = _programs(group)
 
-    @torch.inference_mode()
-    def fn(refiner: networks.RefineNet, scorer: networks.ScoreNet, rgb, depth, mask, rot_grid,
-           hyp_valid):
+    def register(refiner, scorer, rgb, depth, mask, rot_grid, hyp_valid):
         n = rot_grid.shape[0]
-        if n % group.size or hyp_valid.shape[0] != n:
-            raise ValueError(
-                f"[sharding] rot_grid ({n}) must be a multiple of the group "
-                f"size ({group.size}) with hyp_valid the same length "
-                f"({hyp_valid.shape[0]}); use pad_grid(grid, {group.size})"
-            )
-        rot_grid = torch.as_tensor(rot_grid, device=rgb.device)
-        hyp_valid = torch.as_tensor(hyp_valid, device=rgb.device)
         poses, xyz_map, ok = prepare_register(depth, mask, rot_grid, K, cfg)
         shard = _shard(group, n)
         poses, scores = refine_and_score(
@@ -154,6 +181,24 @@ def make_sharded_register(
         best_pose = torch.where(ok, pose, torch.full_like(pose, float("nan")))
         return best_pose, poses, scores, ok
 
+    @torch.inference_mode()
+    def fn(refiner: networks.RefineNet, scorer: networks.ScoreNet, rgb, depth, mask, rot_grid,
+           hyp_valid):
+        n = rot_grid.shape[0]
+        if n % group.size or hyp_valid.shape[0] != n:
+            raise ValueError(
+                f"[sharding] rot_grid ({n}) must be a multiple of the group "
+                f"size ({group.size}) with hyp_valid the same length "
+                f"({hyp_valid.shape[0]}); use pad_grid(grid, {group.size})"
+            )
+        args = (rgb, depth, mask > 0, torch.as_tensor(rot_grid, device=rgb.device),
+                torch.as_tensor(hyp_valid, device=rgb.device))
+        if programs is None:
+            return register(refiner, scorer, *args)
+        key = ("sharded_register", n, tuple(rgb.shape[:2]), refine_itr)
+        return _call(programs, group.device, register, (refiner, scorer), key, args)
+
+    fn.programs = programs
     return fn
 
 
@@ -169,8 +214,20 @@ def make_sharded_track_batch(
     ``fn(refiner, rgb, depth, poses (N,4,4)) -> (N,4,4)``, the same on every
     rank; N must be a multiple of the group size. The refiner has no
     cross-instance term, so the one all-gather assembles the result.
+
+    At W=1 over NCCL ``fn`` keeps one program for each (refiner, N, frame
+    (h, w)), under the key ``("sharded_track_batch", N, (h, w),
+    refine_itr)``, in ``fn.programs`` (None when ``fn`` runs eagerly: W>1,
+    see the module docstring).
     """
     K = torch.as_tensor(K, dtype=torch.float32, device=group.device)
+    programs = _programs(group)
+
+    def track(refiner, rgb, depth, poses):
+        xyz_map = depth_ops.depth_to_xyz(depth, K, cfg.min_depth)
+        local = refine_loop(mesh_consts, refiner, poses[_shard(group, poses.shape[0])], rgb,
+                            xyz_map, K, refine_itr, cfg)
+        return all_gather_rows(local, group.group)
 
     @torch.inference_mode()
     def fn(refiner: networks.RefineNet, rgb, depth, poses):
@@ -181,9 +238,10 @@ def make_sharded_track_batch(
                 f"group size ({group.size}); pad with identity poses and drop "
                 f"the extras"
             )
-        xyz_map = depth_ops.depth_to_xyz(depth, K, cfg.min_depth)
-        local = refine_loop(mesh_consts, refiner, poses[_shard(group, n)], rgb, xyz_map, K,
-                            refine_itr, cfg)
-        return all_gather_rows(local, group.group)
+        if programs is None:
+            return track(refiner, rgb, depth, poses)
+        key = ("sharded_track_batch", n, tuple(rgb.shape[:2]), refine_itr)
+        return _call(programs, group.device, track, (refiner,), key, (rgb, depth, poses))
 
+    fn.programs = programs
     return fn

@@ -441,6 +441,9 @@ class FoundationPose:
         """Shared Register plumbing (cache key, bucket, program call);
         returns the (best, poses, scores, ok) device tuple."""
         self._check_inputs(rgb, depth, mask, target_name)
+        # the mask is read only as mask > 0 (ops/depth.py): one dtype for any
+        # caller's mask, so one program and one bucket buffer serve them all
+        mask = (np.asarray(mask) > 0).astype(np.uint8)
         h, w = rgb.shape[:2]
         bucket = self._bucket_for(h, w)
         key = ("register", target_name, bucket or (h, w), int(refine_itr), bucket is not None)

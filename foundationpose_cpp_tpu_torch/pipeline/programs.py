@@ -43,6 +43,7 @@ caller at a time: two threads calling it at once would share its buffers.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
@@ -145,6 +146,19 @@ def graphs_for(device: torch.device) -> CudaGraphs | None:
     """The graph backend of ``device``: CUDA graphs on a CUDA device, None
     (eager calls) elsewhere."""
     return CudaGraphs(device) if device.type == "cuda" else None
+
+
+@contextlib.contextmanager
+def eager():
+    """Every Program calls its function eagerly while the block runs, on
+    the card too: the reference that a replay is held against."""
+    global graphs_for
+    saved = graphs_for
+    graphs_for = lambda device: None  # noqa: E731
+    try:
+        yield
+    finally:
+        graphs_for = saved
 
 
 class Program:

@@ -8,7 +8,8 @@ trainer's generator.
 
 The JAX trainer stacks the family into padded tables of its TPU render
 kernel; the port renders every object exactly with the render kernel, so the
-bank is a list of per-object ``MeshConstants``. What the bank keeps of the
+bank is a list of per-object ``MeshConstants`` and the trainer keeps one step
+program for each object. What the bank keeps of the
 JAX one: the common-diameter contract (the whole pipeline is
 diameter-normalized, so a common training diameter costs no generality) and
 the ADD-label points, drawn from ``np.random.default_rng(0)`` as the JAX bank
@@ -72,17 +73,27 @@ def build_mesh_bank(
     )
 
 
-def multi_batch(
-    bank: MeshBank, gen: torch.Generator, K: torch.Tensor, cfg: FoundationPoseConfig,
+def bank_source(
+    bank: MeshBank, K: torch.Tensor, cfg: FoundationPoseConfig,
     tcfg: single.SyntheticTrainConfig, kind: str,
-) -> dict[str, torch.Tensor]:
-    """One batch of one object drawn from ``gen``: a refiner batch, or a
-    scorer batch labelled on the bank's ADD points."""
-    idx = int(torch.randint(bank.n_objects, (), generator=gen, device=gen.device))
-    mesh = bank.meshes[idx]
-    if kind == "refiner":
-        return single.make_refiner_batch(mesh, gen, K, cfg, tcfg)
-    return single.make_scorer_batch(mesh, gen, K, cfg, tcfg, pts=bank.add_pts[idx])
+) -> single.BatchSource:
+    """Batches of one object a step: the host draws the object's index from
+    the generator, then its poses; the step builds a refiner batch of that
+    mesh, or a scorer batch labelled on the bank's ADD points. Each object's
+    step is a program of its own (``single.train_net``)."""
+    sample_poses = single.sample_refiner_poses if kind == "refiner" else single.sample_scorer_poses
+
+    def sample(gen: torch.Generator):
+        idx = int(torch.randint(bank.n_objects, (), generator=gen, device=gen.device))
+        return idx, sample_poses(gen, tcfg, bank.meshes[idx].diameter)
+
+    def build(idx: int, gt: torch.Tensor, hyp: torch.Tensor):
+        mesh = bank.meshes[idx]
+        if kind == "refiner":
+            return single.refiner_batch(mesh, gt, hyp, K, cfg, tcfg)
+        return single.scorer_batch(mesh, gt, hyp, K, cfg, tcfg, pts=bank.add_pts[idx])
+
+    return single.BatchSource(sample, build)
 
 
 def _train_multi(kind: str, loss: Callable, bank: MeshBank, cfg, net_cfg, tcfg, steps, seed, K,
@@ -90,7 +101,7 @@ def _train_multi(kind: str, loss: Callable, bank: MeshBank, cfg, net_cfg, tcfg, 
     device = bank.add_pts.device
     Kt = single._intrinsics(K, tcfg, device)
     return single.train_net(
-        kind, net_cfg, lambda gen: multi_batch(bank, gen, Kt, cfg, tcfg, kind), loss, tcfg,
+        kind, net_cfg, bank_source(bank, Kt, cfg, tcfg, kind), loss, tcfg,
         steps, seed, device, log, init_params, on_step,
     )
 

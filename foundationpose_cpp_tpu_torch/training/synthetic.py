@@ -21,7 +21,8 @@ batch under ``torch.no_grad()`` (JAX's ``stop_gradient``): on the card the
 render kernel runs twice a step, once for the observed frames and once for
 the hypothesis crops. The nets train in f32 with ``attn_impl="plain"`` (the
 attention kernel is forward-only, as the JAX trainers force ``"xla"``),
-under ``torch.optim.AdamW`` with optax's warmup-cosine schedule.
+under ``torch.optim.AdamW`` with optax's warmup-cosine schedule. On the
+card the whole step is a captured program (``train_net``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from foundationpose_cpp_tpu_torch.geometry import transforms
 from foundationpose_cpp_tpu_torch.models import convert_jax, networks
 from foundationpose_cpp_tpu_torch.ops import depth as depth_ops
 from foundationpose_cpp_tpu_torch.ops import pointcloud, warp
+from foundationpose_cpp_tpu_torch.pipeline.programs import Program
 from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants, render_branch
 
 
@@ -214,7 +216,7 @@ def render_observed(
     (N,h,w) f32): the whole frame as the crop window, one render launch.
     Depth comes back from the render's diameter-normalized xyz channels."""
     n = gt_poses.shape[0]
-    bbox = torch.tensor([0.0, 0.0, float(w), float(h)], device=gt_poses.device).expand(n, 4)
+    bbox = transforms._constant((0.0, 0.0, float(w), float(h)), gt_poses.device).expand(n, 4)
     clip = transforms.pose_clip_matrix(gt_poses, bbox, K, h, w, cfg.znear, cfg.zfar)
     out6 = render_branch(mesh, gt_poses, clip, h, w, cfg)
     rgb = torch.round(torch.clamp(out6[..., :3], 0.0, 1.0) * 255.0).to(torch.uint8)
@@ -280,16 +282,6 @@ def refiner_batch(
             "trans_target": t_t, "rotvec_target": rv_t}
 
 
-def make_refiner_batch(
-    mesh: MeshConstants, gen: torch.Generator, K: torch.Tensor, cfg: FoundationPoseConfig,
-    tcfg: SyntheticTrainConfig,
-) -> dict[str, torch.Tensor]:
-    """One refiner training batch of tcfg.batch pairs, drawn from ``gen``."""
-    gt, hyp = sample_refiner_poses(gen, tcfg, mesh.diameter)
-    dev = mesh.vertices.device
-    return refiner_batch(mesh, gt.to(dev), hyp.to(dev), K, cfg, tcfg)
-
-
 def sample_scorer_poses(
     gen: torch.Generator, tcfg: SyntheticTrainConfig, diameter: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -345,14 +337,35 @@ def scorer_batch(
     return {"render_input": render_in, "transf_input": transf_in, "labels": labels, "add": add}
 
 
-def make_scorer_batch(
-    mesh: MeshConstants, gen: torch.Generator, K: torch.Tensor, cfg: FoundationPoseConfig,
-    tcfg: SyntheticTrainConfig, pts: torch.Tensor | None = None,
-) -> dict[str, torch.Tensor]:
-    """One scorer training batch, drawn from ``gen``."""
-    gt, hyp = sample_scorer_poses(gen, tcfg, mesh.diameter)
-    dev = mesh.vertices.device
-    return scorer_batch(mesh, gt.to(dev), hyp.to(dev), K, cfg, tcfg, pts)
+@dataclasses.dataclass(frozen=True)
+class BatchSource:
+    """Where a trainer's batches come from, split where JAX's ``run_chunk``
+    splits a step from its keys: ``sample(gen) -> (obj, poses)`` draws on the
+    host, from the trainer's CPU generator, the step's object (an index, 0
+    for one mesh) and its poses (a tuple of CPU tensors); ``build(obj,
+    *poses) -> batch`` builds that object's batch from the poses on the
+    device, inside the step's program."""
+
+    sample: Callable[[torch.Generator], tuple[int, tuple[torch.Tensor, ...]]]
+    build: Callable[..., dict[str, torch.Tensor]]
+
+
+def refiner_source(
+    mesh: MeshConstants, K: torch.Tensor, cfg: FoundationPoseConfig, tcfg: SyntheticTrainConfig,
+) -> BatchSource:
+    """Refiner batches of one mesh: JAX's ``make_refiner_batch``, split."""
+    return BatchSource(
+        lambda gen: (0, sample_refiner_poses(gen, tcfg, mesh.diameter)),
+        lambda obj, gt, hyp: refiner_batch(mesh, gt, hyp, K, cfg, tcfg))
+
+
+def scorer_source(
+    mesh: MeshConstants, K: torch.Tensor, cfg: FoundationPoseConfig, tcfg: SyntheticTrainConfig,
+) -> BatchSource:
+    """Scorer batches of one mesh: JAX's ``make_scorer_batch``, split."""
+    return BatchSource(
+        lambda gen: (0, sample_scorer_poses(gen, tcfg, mesh.diameter)),
+        lambda obj, gt, hyp: scorer_batch(mesh, gt, hyp, K, cfg, tcfg))
 
 
 # ---------------------------------------------------------------------------
@@ -407,15 +420,47 @@ def warmup_cosine(lr: float, warmup_steps: int, decay_steps: int) -> Callable[[i
 def make_optimizer(net: torch.nn.Module, tcfg: SyntheticTrainConfig) -> torch.optim.AdamW:
     """``optax.adamw`` (b1 0.9, b2 0.999, eps 1e-8) with decoupled weight
     decay on every parameter, the position table included, as optax decays
-    every leaf; the trainer sets the learning rate before each step."""
-    return torch.optim.AdamW(net.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=tcfg.weight_decay)
+    every leaf; the trainer sets the learning rate before each step
+    (``set_lr``). On the card it is ``capturable``, its learning rate a 0-d
+    device tensor, so that a captured step reads the rate of each replay."""
+    device = next(net.parameters()).device
+    cuda = device.type == "cuda"
+    return torch.optim.AdamW(
+        net.parameters(), lr=torch.zeros((), device=device) if cuda else 0.0,
+        betas=(0.9, 0.999), eps=1e-8, weight_decay=tcfg.weight_decay, capturable=cuda)
+
+
+def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """The learning rate of the next step: written into a device tensor by a
+    fill kernel (no host synchronization), or set as a number."""
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def _step_body(net, opt, loss_fn, build: Callable, obj: int) -> Callable:
+    """One optimizer step on object ``obj`` from its poses: the batch under
+    no_grad, the loss, the gradients into the standing ``.grad`` tensors
+    and the AdamW update; returns (loss, aux), detached."""
+
+    def step(*poses):
+        with torch.no_grad():
+            batch = build(obj, *poses)
+        loss, aux = loss_fn(net, batch)
+        opt.zero_grad(set_to_none=False)
+        loss.backward()
+        opt.step()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    return step
 
 
 def train_net(
     kind: str,
     net_cfg: networks.NetConfig,
-    make_batch: Callable[[torch.Generator], dict[str, torch.Tensor]],
+    source: BatchSource,
     loss_fn: Callable[[Any, dict[str, torch.Tensor]], tuple[torch.Tensor, dict]],
     tcfg: SyntheticTrainConfig,
     steps: int,
@@ -431,11 +476,30 @@ def train_net(
     rounded up to a multiple of steps_per_call, the schedule over the
     rounded count (as the JAX trainer); a log line per steps_per_call steps.
     ``on_step(i, loss)`` sees every step's loss tensor. Returns the trained
-    f32 module."""
+    f32 module.
+
+    The step is a ``Program`` in the shape of JAX's ``run_chunk``. The host
+    draws each step's object and poses (``source.sample``, a CPU generator:
+    the same stream on every device), and one program a (kind, object) runs
+    the batch builder, the loss, the backward pass and the AdamW update. On
+    the card a program's first call runs the step once and captures it as a
+    CUDA graph (the capture runs nothing), and every later call replays it:
+    one step a call. The poses go up as non-blocking copies from pinned
+    memory into device buffers that the programs read in place, and the
+    learning rate is a device tensor (``make_optimizer``, ``set_lr``), so the
+    loop waits for the card only at its log lines. A capture that fails
+    raises with the program's key; nothing runs the step eagerly on the
+    card. On the CPU the programs run eagerly.
+
+    JAX jits one executable over the family's padded tables; the port
+    renders each mesh exactly, so a mesh's face count is part of its
+    program, and a multi-object trainer keeps one program for each object,
+    all in one memory pool (their replays run in turn on one stream)."""
     cfg_t = dataclasses.replace(net_cfg, attn_impl="plain")
     net = networks.init_net(kind, cfg_t, seed)
     if init is not None:
         net.load_state_dict({k: v.float() for k, v in init.items()}, strict=True)
+    device = torch.device(device)
     net = net.to(device).float().train()
     spc = max(1, tcfg.steps_per_call)
     steps_run = -(-steps // spc) * spc
@@ -444,23 +508,38 @@ def train_net(
     steps = steps_run
     schedule = warmup_cosine(tcfg.lr, tcfg.warmup_steps, max(steps, tcfg.warmup_steps + 1))
     opt = make_optimizer(net, tcfg)
+    pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+    step_programs: dict[int, Program] = {}
+    pose_bufs: list[torch.Tensor] = []  # on the card: the poses of the next step
+
+    def upload(poses: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
+        if device.type != "cuda":
+            return poses
+        if not pose_bufs:
+            pose_bufs.extend(torch.empty(p.shape, dtype=p.dtype, device=device) for p in poses)
+        for buf, p in zip(pose_bufs, poses):
+            # the pinned block is reused only once its copy has run (the
+            # host allocator records an event for it)
+            buf.copy_(p.pin_memory(), non_blocking=True)
+        return tuple(pose_bufs)
+
     gen = torch.Generator().manual_seed(seed)
     t0 = time.perf_counter()
     for i in range(steps):
-        with torch.no_grad():
-            batch = make_batch(gen)
-        loss, aux = loss_fn(net, batch)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        for group in opt.param_groups:
-            group["lr"] = schedule(i)
-        opt.step()
+        obj, poses = source.sample(gen)
+        program = step_programs.get(obj)
+        if program is None:
+            program = step_programs[obj] = Program(
+                _step_body(net, opt, loss_fn, source.build, obj), ("train", kind, obj), device,
+                pool=pool, buffers=range(len(poses)))
+        set_lr(opt, schedule(i))
+        loss, aux = program(*upload(poses))
         if on_step is not None:
-            on_step(i, loss.detach())
+            on_step(i, loss)
         if log is not None and (i + 1) % spc == 0:
-            aux_s = ", ".join(f"{k}={float(v.detach()):.4f}" for k, v in aux.items())
+            aux_s = ", ".join(f"{k}={float(v):.4f}" for k, v in aux.items())
             rate = (i + 1) / (time.perf_counter() - t0)
-            log(f"step {i + 1}/{steps}  loss={float(loss.detach()):.4f}  {aux_s}  ({rate:.1f} steps/s)")
+            log(f"step {i + 1}/{steps}  loss={float(loss):.4f}  {aux_s}  ({rate:.1f} steps/s)")
     return net.eval()
 
 
@@ -484,7 +563,7 @@ def train_refiner(
     dev = mesh.vertices.device
     Kt = _intrinsics(K, tcfg, dev)
     return train_net(
-        "refiner", net_cfg, lambda gen: make_refiner_batch(mesh, gen, Kt, cfg, tcfg),
+        "refiner", net_cfg, refiner_source(mesh, Kt, cfg, tcfg),
         lambda net, batch: refiner_loss(net, batch, cfg.rot_normalizer),
         tcfg, steps, seed, dev, log,
     )
@@ -505,7 +584,7 @@ def train_scorer(
     dev = mesh.vertices.device
     Kt = _intrinsics(K, tcfg, dev)
     return train_net(
-        "scorer", net_cfg, lambda gen: make_scorer_batch(mesh, gen, Kt, cfg, tcfg),
+        "scorer", net_cfg, scorer_source(mesh, Kt, cfg, tcfg),
         scorer_loss, tcfg, steps, seed, dev, log,
     )
 

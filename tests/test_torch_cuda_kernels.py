@@ -488,9 +488,11 @@ def test_refiner_step_on_the_card_trains_every_layer(card):
 def test_sharded_register_on_one_rank_equals_register_step(card, tmp_path):
     """The hypothesis split at one rank over NCCL, in a rank process of its
     own (``parallel.ranks``): the house at full width with the committed
-    weights. Its counted Register runs under set_sync_debug_mode("error")
-    and equals register_step on the same inputs at atol 1e-6; it launches
-    K2 twice and K1 three times and issues three all-gathers."""
+    weights. At one rank the Register is a captured program: its warm-up
+    runs it and captures it (three all-gathers each), its counted run is a
+    replay under set_sync_debug_mode("error") that issues no collective
+    from Python, launches K2 twice and K1 three times, equals the program's
+    function run eagerly bit for bit and register_step at atol 1e-6."""
     from foundationpose_cpp_tpu_torch.geometry import icosphere
     from foundationpose_cpp_tpu_torch.parallel import ranks
 
@@ -508,11 +510,85 @@ def test_sharded_register_on_one_rank_equals_register_step(card, tmp_path):
     meta, a = out["meta"], out["arrays"]
     (task,) = meta["tasks"]
     assert meta["backend"] == "nccl" and not meta["jax_imported"]
-    assert task["collectives"] == {"all_gather": 3}
+    assert task["collectives"] == {} and task["warmup_collectives"] == {"all_gather": 6}
+    assert [p["key"] for p in task["programs"]] == [["sharded_register", 252, [480, 640], 1]]
     assert task["launches"] == {"render_views": 2, "mha_packed_qkv": 3, "mha_whole_head": 0}
+    for name in ("best", "poses", "scores", "ok"):
+        np.testing.assert_array_equal(a[f"t0_{name}"], a[f"t0_eager_{name}"])
     for name in ("best", "poses", "scores"):
         np.testing.assert_allclose(a[f"t0_{name}"], a[f"t0_ref_{name}"], rtol=0, atol=1e-6)
     assert bool(a["t0_ok"]) and np.isfinite(a["t0_best"]).all()
+
+
+def test_sharded_track_on_one_rank_is_a_program(card, tmp_path):
+    """``make_sharded_track_batch`` at one rank over NCCL, two chained steps
+    of two instances of the house: the first call runs the step and
+    captures it (one all-gather each), the second and the counted run's
+    two are replays that issue none from Python and launch K1 and K2 once
+    a step; the poses equal the program's function run eagerly bit for bit
+    and track_step's at atol 1e-6."""
+    from foundationpose_cpp_tpu_torch.parallel import ranks
+
+    house = procedural.textured_house(name="house")
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]], np.float32)
+    gt = synthetic.default_pose(0.6)
+    rgb, depth, _ = synthetic.render_scene(MeshConstants.from_asset(house, card), gt, K, 480, 640)
+    starts = np.stack([gt, gt]).astype(np.float32)
+    starts[1, :3, 3] += 0.01
+    job = dict(device=None, mesh=["textured_house", {"name": "house"}], K=K.tolist(), cfg={},
+               refiner=str(WEIGHTS / "refiner_multi_full.npz"),
+               tasks=[{"kind": "track", "steps": 2}])
+    (out,) = ranks.run(job, dict(rgb=rgb, depth=depth, track_poses=starts), 1, tmp_path,
+                       timeout=300)
+    (task,) = out["meta"]["tasks"]
+    a = out["arrays"]
+    assert task["collectives"] == {} and task["warmup_collectives"] == {"all_gather": 2}
+    assert [p["key"] for p in task["programs"]] == [["sharded_track_batch", 2, [480, 640], 1]]
+    assert task["launches"] == {"render_views": 2, "mha_packed_qkv": 2, "mha_whole_head": 0}
+    np.testing.assert_array_equal(a["t0_poses"], a["t0_eager_poses"])
+    np.testing.assert_allclose(a["t0_poses"], a["t0_ref_poses"], rtol=0, atol=1e-6)
+
+
+def test_train_step_programs_equal_eager_steps_on_the_card(card):
+    """Four steps of the multi-object scorer trainer on two family objects
+    through its step programs (CUDA graphs, one an object) equal the same
+    four steps with every program run eagerly, bit for bit in the losses
+    and the parameters, under cuDNN's deterministic mode (in its default
+    mode two eager runs already differ); K2 launches twice a step."""
+    import dataclasses
+
+    from foundationpose_cpp_tpu_torch.meshio import family
+    from foundationpose_cpp_tpu_torch.models import networks
+    from foundationpose_cpp_tpu_torch.pipeline import programs
+    from foundationpose_cpp_tpu_torch.training import multi
+    from foundationpose_cpp_tpu_torch.training import synthetic as tr
+
+    bank = multi.build_mesh_bank([family.random_family_asset(s) for s in range(2)], device=card)
+    cfg = FoundationPoseConfig(crop_window_h=32, crop_window_w=32)
+    tcfg = tr.SyntheticTrainConfig(frame_hw=64, focal=180.0, batch=8, hyps_per_scene=4,
+                                   steps_per_call=1, warmup_steps=4, lr=1e-3)
+    net_cfg = networks.NetConfig(width1=8, width2=8, embed_dim=256, num_heads=2, ffn_dim=16,
+                                 crop_hw=32, cross_attention=True)
+
+    def run():
+        losses = []
+        net = multi.train_scorer_multi(bank, cfg, net_cfg, tcfg, steps=4, seed=0,
+                                       on_step=lambda i, loss: losses.append(loss))
+        return net.state_dict(), torch.stack(losses)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = render.render_views.launches
+        graphed = run()
+        assert render.render_views.launches - before == 8
+        with programs.eager():
+            eager = run()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert torch.equal(graphed[1], eager[1])
+    for key, value in graphed[0].items():
+        assert torch.equal(value, eager[0][key]), key
 
 
 @pytest.mark.parametrize("shape", [probe_grid.NARROW, probe_grid.WIDE, (3, 2, 7, 96),

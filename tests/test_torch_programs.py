@@ -15,8 +15,9 @@ tests/test_torch_pipeline.py:
 - the bookkeeping of a Program on the card (static buffers, bucket buffers
   read in place, clones of the outputs, launch counters that count per
   call, a capture that fails raising with the key) runs with a stand-in for
-  the CUDA graph (``FakeGraphs``) whose replay runs the function again on
-  the static buffers and writes the graph's output tensors.
+  the CUDA graph (``FakeGraphs`` of tests/graph_standin.py) whose replay
+  runs the function again on the static buffers and writes the graph's
+  output tensors.
 """
 
 import dataclasses
@@ -41,6 +42,8 @@ from foundationpose_cpp_tpu_torch.models import convert_jax
 from foundationpose_cpp_tpu_torch.ops import render
 from foundationpose_cpp_tpu_torch.pipeline import foundationpose as fpp
 from foundationpose_cpp_tpu_torch.pipeline import programs
+
+from .graph_standin import FakeGraphs, graphs
 
 NET = jnet.NetConfig(
     width1=8, width2=16, embed_dim=64, num_heads=4, crop_hw=32,
@@ -197,50 +200,11 @@ def test_clip_matrix_device_extent_equals_numbers(hw):
                        transforms.pose_clip_matrix(poses, bbox, Kt, *hw))
 
 
-class FakeGraph:
-    """A captured 'graph': replay runs the function again on the static
-    input buffers and writes the results into the capture's outputs."""
-
-    def __init__(self, fn, inputs, outputs):
-        self.fn, self.inputs, self.outputs = fn, inputs, outputs
-
-    def replay(self):
-        counts = programs.launch_counts()  # a replay runs no wrapper
-        new = self.fn(*self.inputs)
-        programs._set_counts(counts)
-        flat_new, flat_out = [], []
-        programs.tree_map(flat_new.append, new)
-        programs.tree_map(flat_out.append, self.outputs)
-        for o, n in zip(flat_out, flat_new):
-            o.copy_(n)
-
-
-class FakeGraphs:
-    """``programs.CudaGraphs``'s surface on the CPU."""
-
-    def __init__(self, fail=False):
-        self.captures, self.replays, self.fail = 0, 0, fail
-
-    def warm_up(self, fn, inputs):
-        return fn(*inputs)
-
-    def capture(self, fn, inputs, pool):
-        self.captures += 1
-        outputs = fn(*inputs)
-        if self.fail:
-            raise RuntimeError("operation not permitted when stream is capturing")
-        return FakeGraph(fn, inputs, outputs), outputs, 7
-
-    def replay(self, graph):
-        self.replays += 1
-        graph.replay()
-
-
 @pytest.fixture
 def fake_graphs(monkeypatch):
-    graphs = FakeGraphs()
-    monkeypatch.setattr(programs, "graphs_for", lambda device: graphs)
-    return graphs
+    standin = FakeGraphs()
+    monkeypatch.setattr(programs, "graphs_for", lambda device: standin)
+    return standin
 
 
 def _counted_double(x):
@@ -291,7 +255,7 @@ def test_bucket_program_reads_bucket_buffers_in_place(nets, scenes, fake_graphs)
     eager, graphed = _port(nets, BUCKETS), _port(nets, BUCKETS)
     for hw in SIZES + SIZES[:1]:
         pose, rgb, depth, mask = scenes[hw]
-        with monkeypatch_graphs(None):
+        with graphs(None):
             want = (eager.register_with_scores(rgb, depth, mask, "cube"),
                     eager.track(rgb, depth, pose, "cube"))
         got = (graphed.register_with_scores(rgb, depth, mask, "cube"),
@@ -305,20 +269,6 @@ def test_bucket_program_reads_bucket_buffers_in_place(nets, scenes, fake_graphs)
     assert [t.data_ptr() for t in program._inputs] == [
         bufs["rgb"].data_ptr(), bufs["depth"].data_ptr(), bufs["mask"].data_ptr(),
         graphed._bucket_extents[BUCKETS[0]].data_ptr()]
-
-
-class monkeypatch_graphs:
-    """Context manager: ``programs.graphs_for`` returns ``graphs`` inside."""
-
-    def __init__(self, graphs):
-        self.graphs = graphs
-
-    def __enter__(self):
-        self.saved = programs.graphs_for
-        programs.graphs_for = lambda device: self.graphs
-
-    def __exit__(self, *exc):
-        programs.graphs_for = self.saved
 
 
 def test_packed_step_and_core_programs(nets, scenes, fake_graphs):
@@ -335,7 +285,7 @@ def test_packed_step_and_core_programs(nets, scenes, fake_graphs):
     for _ in range(3):
         p = step(packed, p)
         chain.append(p)
-    with monkeypatch_graphs(None):
+    with graphs(None):
         want, q = [], torch.from_numpy(pose)
         for _ in range(3):
             q = step(packed, q)

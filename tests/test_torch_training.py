@@ -346,7 +346,7 @@ def test_refiner_training_reduces_loss(meshes):
     losses = []
     tcfg = dataclasses.replace(TCFG, batch=8, lr=1e-3, warmup_steps=2)
     net = tr.train_net(
-        "refiner", NET, lambda gen: tr.make_refiner_batch(mesh, gen, K, CFG, tcfg),
+        "refiner", NET, tr.refiner_source(mesh, K, CFG, tcfg),
         lambda n, b: tr.refiner_loss(n, b, CFG.rot_normalizer), tcfg, 30, 0, "cpu",
         on_step=lambda i, loss: losses.append(float(loss)),
     )
