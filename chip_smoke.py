@@ -729,11 +729,10 @@ def run_packed(torch, np, profiling, kernels, main):
     # the six frames chained, then each format's 64 chained steps
     track_ms = []
     for _ in range(3):
-        timer, pose = profiling.StageTimer(), main["pose"]
+        pose, t0 = main["pose"], time.perf_counter()
         for i in range(24):
-            with timer.stage("track"):
-                pose = model.track(frames[i % 6][0], frames[i % 6][1], pose, "house")
-        track_ms.append(timer.mean_ms("track"))
+            pose = model.track(frames[i % 6][0], frames[i % 6][1], pose, "house")
+        track_ms.append((time.perf_counter() - t0) * 1e3 / 24)
 
     def windows(values):
         return "/".join(f"{v:.3f}" for v in values)
@@ -837,12 +836,11 @@ def run_async(torch, np, profiling, kernels, main):
         try:
             tracker.run(main["pose"], max_frames=2)  # warm-up
             dropped0 = tracker.dropped_frames
-            fps = profiling.FPSCounter()
             reset_counts(kernels)
-            fps.start()
+            t0 = time.perf_counter()
             records = tracker.run(main["pose"], max_frames=64, pipeline_depth=depth,
-                                  idle_sleep_s=poll, on_pose=lambda rec: fps.count())
-            rate = fps.fps
+                                  idle_sleep_s=poll)
+            rate = len(records) / (time.perf_counter() - t0)
             counts = counts_of(kernels)
         finally:
             halt.set()

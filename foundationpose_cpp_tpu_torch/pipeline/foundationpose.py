@@ -25,6 +25,12 @@ key, replayed after, run eagerly on the CPU. With
 bucket's device buffers (zeros beyond its real extent) and the real (h, w)
 rides along as a device ``image_hw``, so one set of buffers and one program
 serve every camera size in the bucket (reference README.md:20).
+The steps mark their stages (``programs.stage``: front_end, render_crop,
+refiner, pose_update, scorer, select; Track's xyz first), which time them
+inside the graphs of the public calls' programs (the packed step's graph,
+whose events nothing would read, carries none), and the public calls
+record their host spans and copies in ``utils.profiling``'s recorder while
+it is on.
 ``make_packed_tracker`` is the deployment fast path: one uint8 buffer in, a
 device pose out, nothing read back.
 """
@@ -40,8 +46,9 @@ from foundationpose_cpp_tpu_torch.geometry import icosphere, transforms
 from foundationpose_cpp_tpu_torch.meshio.mesh_loader import MeshAsset
 from foundationpose_cpp_tpu_torch.models import convert_jax, networks
 from foundationpose_cpp_tpu_torch.ops import depth as depth_ops
-from foundationpose_cpp_tpu_torch.pipeline.programs import Program
+from foundationpose_cpp_tpu_torch.pipeline.programs import Program, stage
 from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants, render_and_transform
+from foundationpose_cpp_tpu_torch.utils import profiling
 from foundationpose_cpp_tpu_torch.utils.device import resolve_device
 
 
@@ -61,10 +68,13 @@ def refine_loop(
     padded to a size bucket, numbers or 0-d f32 tensors on the device
     (None: the tensors' shape)."""
     for _ in range(refine_itr):
+        stage("render_crop")
         render_in, transf_in = render_and_transform(
             mesh, poses, rgb, xyz_map, K, cfg.refine_crop_ratio, cfg, image_hw
         )
+        stage("refiner")
         out = refiner(render_in, transf_in)
+        stage("pose_update")
         poses = transforms.apply_refine_delta(
             poses, out["trans"], out["rot"], mesh.diameter, cfg.rot_normalizer
         )
@@ -128,9 +138,11 @@ def refine_and_score(
     poses are one rank's shard (``parallel.sharding``).
     Returns (poses (M,4,4), scores (M,))."""
     poses = refine_loop(mesh, refiner, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw)
+    stage("render_crop")
     render_in, transf_in = render_and_transform(
         mesh, poses, rgb, xyz_map, K, cfg.score_crop_ratio, cfg, image_hw
     )
+    stage("scorer")
     out = scorer(render_in, transf_in, gather=scorer_group)
     return poses, out["scores"][:, 0]
 
@@ -154,10 +166,12 @@ def register_step(
     image_hw: the real (h, w) of a frame padded to a size bucket.
     hyp_valid: (M,) bool, False on the rows that pad the grid
     (``parallel.sharding.pad_grid``); they score -inf before the argmax."""
+    stage("front_end")
     poses, xyz_map, ok = prepare_register(depth, mask, rot_grid, K, cfg, image_hw)
     poses, scores = refine_and_score(
         mesh, refiner, scorer, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw
     )
+    stage("select")
     if hyp_valid is not None:
         scores = torch.where(hyp_valid, scores, float("-inf"))
     best = torch.argmax(scores)  # getMaxScoreIndex (thrust) equivalent
@@ -180,6 +194,7 @@ def track_step(
 ) -> torch.Tensor:
     """Track for a (N, 4, 4) batch of instances of one mesh (N=1: the
     reference Track). image_hw: the real (h, w) of a padded frame."""
+    stage("xyz")
     xyz_map = depth_ops.depth_to_xyz(depth, K, cfg.min_depth)
     return refine_loop(mesh, refiner, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw)
 
@@ -328,7 +343,10 @@ class FoundationPose:
             raise TypeError("[FoundationPose] depth must be float32 meters")
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        out = src.to(self._device)
+        profiling.count_upload(src, out)
+        return out
 
     # size buckets (reference README.md:20 dynamic input sizes)
 
@@ -366,6 +384,7 @@ class FoundationPose:
         buf[h:].zero_()
         buf[:h, w:].zero_()
         buf[:h, :w].copy_(src)
+        profiling.count_upload(src, buf)
         return buf
 
     def _bucket_hw(self, bucket: tuple[int, int], h: int, w: int) -> torch.Tensor:
@@ -399,8 +418,9 @@ class FoundationPose:
             return tensors
         return [*tensors, self._bucket_hw(self._bucket_for(*image_hw), *image_hw)]
 
-    def _program(self, fn, key: tuple, buffers=()) -> Program:
-        return Program(fn, key, self._device, pool=self._graph_pool, buffers=buffers)
+    def _program(self, fn, key: tuple, buffers=(), staged=False) -> Program:
+        return Program(fn, key, self._device, pool=self._graph_pool, buffers=buffers,
+                       staged=staged)
 
     # traced program bodies, cached under the JAX package's keys
 
@@ -417,8 +437,9 @@ class FoundationPose:
                 None if hw is None else (hw[0], hw[1]),
             )
 
-        # in a bucket the graph reads the bucket's buffers and the real (h, w)
-        return self._program(program, key, (0, 1, 2, 3) if bucketed else ())
+        # in a bucket the graph reads the bucket's buffers and the real (h, w);
+        # the public calls read its stage events back
+        return self._program(program, key, (0, 1, 2, 3) if bucketed else (), staged=True)
 
     def _track_program(self, key: tuple, mesh_name: str, refine_itr: int, bucketed: bool,
                        single: bool) -> Program:
@@ -432,7 +453,7 @@ class FoundationPose:
             )
             return out[0] if single else out
 
-        return self._program(program, key, (0, 1, 3) if bucketed else ())
+        return self._program(program, key, (0, 1, 3) if bucketed else (), staged=True)
 
     # public API
 
@@ -440,7 +461,9 @@ class FoundationPose:
     def _run_register(self, rgb, depth, mask, target_name, refine_itr):
         """Shared Register plumbing (cache key, bucket, program call);
         returns the (best, poses, scores, ok) device tuple."""
+        profiling.step("check")
         self._check_inputs(rgb, depth, mask, target_name)
+        profiling.step("mask")
         # the mask is read only as mask > 0 (ops/depth.py): one dtype for any
         # caller's mask, so one program and one bucket buffer serve them all
         mask = (np.asarray(mask) > 0).astype(np.uint8)
@@ -450,23 +473,31 @@ class FoundationPose:
         if key not in self._register_cache:
             self._register_cache[key] = self._register_program(
                 key, target_name, int(refine_itr), bucket is not None)
-        return self._register_cache[key](*self._frame_args(rgb, depth, mask))
+        profiling.step("upload")
+        args = self._frame_args(rgb, depth, mask)
+        profiling.step("program")
+        return self._register_cache[key](*args)
 
     @torch.inference_mode()
     def _run_track(self, kind: str, rgb, depth, poses: np.ndarray, target_name, refine_itr):
         """Shared Track plumbing: ``kind`` "track" for one (4, 4) pose,
         "track_batch" for (N, 4, 4) (its key holds N)."""
-        self._check_inputs(rgb, depth, None, target_name)
-        h, w = rgb.shape[:2]
-        bucket = self._bucket_for(h, w)
-        n = () if kind == "track" else (int(poses.shape[0]),)
-        key = (kind, target_name, bucket or (h, w), int(refine_itr), *n, bucket is not None)
-        if key not in self._track_cache:
-            self._track_cache[key] = self._track_program(
-                key, target_name, int(refine_itr), bucket is not None, kind == "track")
-        frame = self._frame_args(rgb, depth)
-        out = self._track_cache[key](*frame[:2], self._upload(poses), *frame[2:])
-        return out.cpu().numpy()
+        with profiling.call(kind):
+            profiling.step("check")
+            self._check_inputs(rgb, depth, None, target_name)
+            h, w = rgb.shape[:2]
+            bucket = self._bucket_for(h, w)
+            n = () if kind == "track" else (int(poses.shape[0]),)
+            key = (kind, target_name, bucket or (h, w), int(refine_itr), *n, bucket is not None)
+            if key not in self._track_cache:
+                self._track_cache[key] = self._track_program(
+                    key, target_name, int(refine_itr), bucket is not None, kind == "track")
+            profiling.step("upload")
+            frame = self._frame_args(rgb, depth)
+            pose = self._upload(poses)
+            profiling.step("program")
+            out = self._track_cache[key](*frame[:2], pose, *frame[2:])
+            return _read_back(out)[0]
 
     def register(
         self,
@@ -481,8 +512,9 @@ class FoundationPose:
         Mirrors FoundationPose::Register (foundationpose.cpp:181-228).
         Raises RuntimeError when the mask is empty / has no valid depth.
         """
-        best, _, _, _ = self._run_register(rgb, depth, mask, target_name, refine_itr)
-        out = best.cpu().numpy()  # the one host synchronization
+        with profiling.call("register"):
+            best, _, _, _ = self._run_register(rgb, depth, mask, target_name, refine_itr)
+            out = _read_back(best)[0]  # the one host synchronization
         if np.isnan(out[0, 0]):
             raise RuntimeError(
                 "[FoundationPose] translation guess failed: mask is empty or "
@@ -494,10 +526,11 @@ class FoundationPose:
         self, rgb, depth, mask, target_name, refine_itr: int = 1
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Register returning (best_pose, all refined poses, scores)."""
-        best, poses, scores, _ = self._run_register(
-            rgb, depth, mask, target_name, refine_itr
-        )
-        best, poses, scores = (t.cpu().numpy() for t in (best, poses, scores))
+        with profiling.call("register_with_scores"):
+            best, poses, scores, _ = self._run_register(
+                rgb, depth, mask, target_name, refine_itr
+            )
+            best, poses, scores = _read_back(best, poses, scores)
         if np.isnan(best[0, 0]):
             raise RuntimeError("[FoundationPose] translation guess failed")
         return best, poses, scores
@@ -656,6 +689,18 @@ class FoundationPose:
     def object_dimension(self, target_name: str) -> np.ndarray:
         """Extents of the mesh in its PCA basis (the oriented bbox size)."""
         return self._assets[target_name].dimensions
+
+
+def _read_back(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """The tensors in host memory (waits for the device), then, in a
+    recorded call, the device ms of the stages of the graph it replayed."""
+    profiling.step("readback")
+    out = [t.cpu().numpy() for t in tensors]
+    if profiling.counting():
+        profiling.count_bytes("readback", sum(t.numel() * t.element_size()
+                                              for t in tensors if t.device.type != "cpu"))
+        profiling.read_stages()
+    return out
 
 
 def create_foundationpose_model(

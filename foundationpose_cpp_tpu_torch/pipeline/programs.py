@@ -34,6 +34,17 @@ capture launched nothing) and adds it on every replay, so a counter counts
 the kernel launches the card made: one call's worth on the first call (the
 run before the capture) and on each replay.
 
+Stage events: the function marks its stages with ``stage(name)``. During
+the capture of a ``staged`` Program each mark records a timing event into
+the graph (an event node), and the Program records one more after the
+function, which closes the last stage; elsewhere (the CPU, ``eager()``,
+the warm-up run, an unstaged Program's capture) a mark does nothing, so a
+replay computes what the eager function computes. After a replay the
+device ms between consecutive events are the stages' times
+(``stage_ms``); a public call reads them into ``utils.profiling``'s
+recorder after its readback, while the recorder is on. ``captures`` and
+``replays`` count a Program's captures and replays.
+
 Everything a graph reads is captured by address: the static buffers, the
 nets' parameters, the meshes' tensors and the model's constants.
 ``load_state_dict`` copies in place and is safe; replacing a module or a
@@ -53,6 +64,7 @@ from typing import Any, Callable, Iterable
 import torch
 
 from foundationpose_cpp_tpu_torch.ops import attention, probe_grid, rasterize_tiled, render
+from foundationpose_cpp_tpu_torch.utils import profiling
 
 # every wrapper that counts the launches of its kernel
 COUNTED = (
@@ -62,6 +74,21 @@ COUNTED = (
     rasterize_tiled.rasterize_tiled,
     probe_grid.probe_grid,
 )
+
+
+# (the stage marks of the Program being captured, its event factory) during
+# a capture, else None
+_capturing: tuple[list, Callable] | None = None
+
+
+def stage(name: str) -> None:
+    """Opens the stage ``name`` of the function being captured and closes
+    the stage before it: records a timing event into the graph. Does
+    nothing outside a Program's capture."""
+    if _capturing is not None:
+        marks, event = _capturing
+        marks.append((name, event()))
+        marks[-1][1].record()
 
 
 def launch_counts() -> tuple[int, ...]:
@@ -140,6 +167,11 @@ class CudaGraphs:
     def replay(graph) -> None:
         graph.replay()
 
+    @staticmethod
+    def event() -> torch.cuda.Event:
+        """A timing event that a capture records as a node of the graph."""
+        return torch.cuda.Event(enable_timing=True, external=True)
+
 
 @functools.cache
 def graphs_for(device: torch.device) -> CudaGraphs | None:
@@ -172,26 +204,35 @@ class Program:
     gives the graph a pool of its own. buffers: positions of arguments that
     are the caller's persistent device buffers (a size bucket's frame): the
     graph reads them in place, and a call that passes another tensor there
-    copies it in.
+    copies it in. staged: the capture records ``fn``'s stage marks as
+    event nodes, for a caller that reads them back (``stage_ms``); the
+    marks of an unstaged program do nothing, so its graph carries no
+    event node.
 
     After the capture: ``capture_ms`` (host clock, the warm-up run
-    excluded), ``nodes`` (the graph's node count, or None) and
-    ``launches_per_call`` (each counted wrapper's launches in one replay).
+    excluded), ``nodes`` (the graph's node count, or None),
+    ``launches_per_call`` (each counted wrapper's launches in one replay)
+    and ``stages`` (the names of the stages marked in the graph, in order).
+    ``captures`` and ``replays`` count always.
     """
 
     def __init__(self, fn: Callable, key: tuple, device, *, pool=None,
-                 buffers: Iterable[int] = ()) -> None:
+                 buffers: Iterable[int] = (), staged: bool = False) -> None:
         self.fn = fn
         self.key = key
         self.device = torch.device(device)
+        self.staged = staged
         self._pool = pool
         self._buffers = frozenset(buffers)
         self._graph = None
         self._inputs: list[torch.Tensor] = []
         self._outputs = None
         self._delta: tuple[int, ...] = ()
+        self._marks: list[tuple[str | None, Any]] = []  # (stage, event), the end's name None
         self.capture_ms: float | None = None
         self.nodes: int | None = None
+        self.captures = 0
+        self.replays = 0
 
     @property
     def captured(self) -> bool:
@@ -201,21 +242,52 @@ class Program:
     def launches_per_call(self) -> dict[str, int]:
         return {fn.__name__: d for fn, d in zip(COUNTED, self._delta) if d}
 
+    @property
+    def stages(self) -> list[str]:
+        return [name for name, _ in self._marks[:-1]]
+
+    def stage_ms(self) -> list[tuple[str, float]]:
+        """(stage, device ms) of each stage of the latest replay, in the
+        graph's order; read it once the device has run the replay."""
+        return [(name, start.elapsed_time(end))
+                for (name, start), (_, end) in zip(self._marks, self._marks[1:])]
+
     def __call__(self, *args: torch.Tensor):
         graphs = graphs_for(self.device)
         if graphs is None:
             return self.fn(*args)
         if self._graph is None:
             return self._capture(graphs, args)
-        self._load(args)
-        try:
-            graphs.replay(self._graph)
-        except RuntimeError as exc:
-            raise RuntimeError(f"program {self.key!r}: CUDA graph replay failed: {exc}") from exc
+        with profiling.span("load"):
+            self._load(args)
+        with profiling.span("replay"):
+            try:
+                graphs.replay(self._graph)
+            except RuntimeError as exc:
+                raise RuntimeError(
+                    f"program {self.key!r}: CUDA graph replay failed: {exc}") from exc
+        self.replays += 1
+        profiling.RECORDER.replays += 1
         _set_counts(c + d for c, d in zip(launch_counts(), self._delta))
-        return tree_map(torch.clone, self._outputs)
+        if self._marks:
+            profiling.pending_stages(self)
+        with profiling.span("clone"):
+            out = tree_map(torch.clone, self._outputs)
+            if profiling.counting():
+                sizes = []
+                tree_map(lambda t: sizes.append(t.numel() * t.element_size()), out)
+                profiling.count_bytes("clone", sum(sizes))
+        return out
+
+    def _closed(self, *inputs: torch.Tensor):
+        """The function as captured: a last event closes its last stage."""
+        outputs = self.fn(*inputs)
+        if self._marks:
+            stage(None)
+        return outputs
 
     def _load(self, args) -> None:
+        counted = profiling.counting()
         if len(args) != len(self._inputs):
             raise ValueError(f"program {self.key!r}: {len(args)} arguments, captured with "
                              f"{len(self._inputs)}")
@@ -227,8 +299,11 @@ class Program:
             if not (arg.device == buf.device and arg.data_ptr() == buf.data_ptr()
                     and arg.stride() == buf.stride()):
                 buf.copy_(arg)
+                if counted:
+                    profiling.count_bytes("load", buf.numel() * buf.element_size())
 
     def _capture(self, graphs: CudaGraphs, args):
+        global _capturing
         inputs = []
         for i, arg in enumerate(args):
             if i in self._buffers and arg.device == self.device and arg.is_contiguous():
@@ -236,18 +311,25 @@ class Program:
             else:
                 buf = torch.empty(arg.shape, dtype=arg.dtype, device=self.device)
                 buf.copy_(arg)
+                profiling.count_bytes("load", buf.numel() * buf.element_size())
                 inputs.append(buf)
         result = graphs.warm_up(self.fn, inputs)  # the warm-up run: this call's result
         before = launch_counts()
         t0 = time.perf_counter()
+        self._marks = []
+        if self.staged:
+            _capturing = (self._marks, graphs.event)
         try:
-            graph, outputs, nodes = graphs.capture(self.fn, inputs, self._pool)
+            graph, outputs, nodes = graphs.capture(self._closed, inputs, self._pool)
         except Exception as exc:
             raise RuntimeError(
                 f"program {self.key!r}: CUDA graph capture failed: {exc}") from exc
         finally:
+            _capturing = None
             delta = tuple(a - b for a, b in zip(launch_counts(), before))
             _set_counts(before)  # the capture recorded the launches and made none
+        self.captures += 1
+        profiling.RECORDER.captures += 1
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self._graph, self._inputs, self._outputs = graph, inputs, outputs
         self._delta, self.nodes = delta, nodes

@@ -1,8 +1,8 @@
 """A stand-in for ``pipeline.programs.CudaGraphs`` on the CPU.
 
 It runs the card's bookkeeping of a ``Program`` (static buffers, buffers
-read in place, cloned outputs, launch counters, capture errors) where there
-is no card. Its "replay" runs the function again on the static input
+read in place, cloned outputs, launch counters, capture errors, stage
+events) where there is no card. Its "replay" runs the function again on the static input
 buffers and writes the results into the capture's output tensors, as a
 replay of the graph would.
 
@@ -19,6 +19,7 @@ tests run with one intra-op thread.
 from __future__ import annotations
 
 import contextlib
+import time
 
 import pytest
 import torch
@@ -59,6 +60,21 @@ def _restore(opt: torch.optim.Optimizer, saved: list) -> None:
                 opt.state[p][k].copy_(v)
 
 
+class FakeEvent:
+    """A timing event on the host clock: ``record`` stamps it (at the
+    capture, as the stand-in's replay runs no mark), ``elapsed_time`` is
+    the milliseconds between two stamps."""
+
+    def __init__(self):
+        self.ms = None
+
+    def record(self):
+        self.ms = time.perf_counter() * 1e3
+
+    def elapsed_time(self, end: "FakeEvent") -> float:
+        return end.ms - self.ms
+
+
 class FakeGraphs:
     """``programs.CudaGraphs``'s surface on the CPU. ``optimizers``: a list
     (filled by the caller, possibly after this is made) of the optimizers
@@ -84,6 +100,10 @@ class FakeGraphs:
     def replay(self, graph):
         self.replays += 1
         graph.replay()
+
+    @staticmethod
+    def event():
+        return FakeEvent()
 
 
 @contextlib.contextmanager

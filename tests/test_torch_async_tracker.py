@@ -280,22 +280,7 @@ def test_push_frame_validation(models):
         tasync.AsyncTracker(tm, "cube", (H, W), capacity=0)
 
 
-# --- timers (tests/test_aux.py:70-82) ---------------------------------------
-
-def test_stage_timer_and_fps_counter():
-    timer = profiling.StageTimer()
-    with timer.stage("work") as h:
-        h["result"] = {"a": [torch.ones(4) * 2]}
-    assert timer.counts["work"] == 1
-    assert timer.mean_ms("work") >= 0
-    assert "work" in timer.report()
-
-    fps = profiling.FPSCounter()
-    assert fps.fps == 0.0
-    fps.start()
-    fps.count(10)
-    assert fps.fps > 0
-
+# --- tracing -----------------------------------------------------------------
 
 def test_trace_writes_a_timeline(tmp_path):
     with profiling.trace(str(tmp_path / "trace")) as prof:
