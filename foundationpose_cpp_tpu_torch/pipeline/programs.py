@@ -63,16 +63,19 @@ from typing import Any, Callable, Iterable
 
 import torch
 
+from foundationpose_cpp_tpu_torch.models import networks
 from foundationpose_cpp_tpu_torch.ops import attention, probe_grid, rasterize_tiled, render
 from foundationpose_cpp_tpu_torch.utils import profiling
 
-# every wrapper that counts the launches of its kernel
+# every wrapper that counts the launches of its kernel, and the nets'
+# padded stem, which counts the calls that take its route
 COUNTED = (
     attention.mha_packed_qkv,
     attention.mha_whole_head,
     render.render_views,
     rasterize_tiled.rasterize_tiled,
     probe_grid.probe_grid,
+    networks.padded_stem,
 )
 
 

@@ -5,8 +5,13 @@
 
 Counterpart of the JAX package's ``tools/bench_stem.py``, with its labels:
 
+  as served    the stem as ``_Backbone.forward`` runs it
+               (``networks.stem``): the two halves of the batch, f32 as
+               the crops reach the nets, written into the nets' input
+               (on the card in bf16, the padded route: a zeroed buffer of
+               ``networks.STEM_CHANNEL_MULTIPLE`` channels), then the conv
   direct       the production conv (``RefineNet.encodeA["conv0"]``: 7x7,
-               stride 2, torch pad 3)
+               stride 2, torch pad 3) on an input already cast
   C padded     the same, its input's channels padded with zeros to 8, 16
                and 32 (dim 1 of the nets' NCHW view of channels-last
                memory, which the padded input keeps)
@@ -18,7 +23,8 @@ Counterpart of the JAX package's ``tools/bench_stem.py``, with its labels:
                the blocking is made before the timed calls)
 
 All use the weights of a seeded refiner's stem in the nets' (O, C, 7, 7)
-layout and dtype (bf16 on the card, f32 on the CPU). Each variant runs on
+layout and dtype (bf16 on the card, f32 on the CPU); all but "as served"
+take their input in that dtype. Each variant runs on
 ``iters`` distinct 2N-crop batches made on the device, after a warm-up
 (cuDNN picks its algorithms per shape), timed by CUDA events; then every
 variant is held against ``direct`` on the first batch (max |d|). Prints
@@ -40,6 +46,20 @@ from foundationpose_cpp_tpu_torch.tools.profile_nets import (
 from foundationpose_cpp_tpu_torch.utils.device import resolve_device
 
 PADS = (8, 16, 32)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """The (N, H, W, C) view of the nets' channels-last (N, C, H, W)."""
+    return x.permute(0, 2, 3, 1)
+
+
+def stem_conv(weight: torch.Tensor, bias: torch.Tensor) -> networks.Conv:
+    """A 7x7/s2 stem ``Conv`` holding ``weight`` (O, C, 7, 7) and ``bias``
+    themselves, in their device and dtype."""
+    conv = networks.Conv(weight.shape[1], weight.shape[0], 7, stride=2)
+    del conv.weight, conv.bias
+    conv.weight, conv.bias = weight, bias
+    return conv
 
 
 def block2x2(x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +115,14 @@ def variants(weight: torch.Tensor, bias: torch.Tensor) -> dict:
     def blocked(xb):
         return F.conv2d(xb, wb.to(xb.dtype), bias.to(xb.dtype))
 
+    served = stem_conv(weight, bias)
+
+    def as_served(x):
+        n = x.shape[0] // 2
+        return networks.stem(served, nhwc(x[:n]), nhwc(x[n:]), weight.dtype)
+
     out = {"direct 7x7 s2": (None, direct)}
+    out["as served"] = (lambda x: x.float(), as_served)
     for cpad in PADS:
         out[f"direct, C padded to {cpad}"] = (None, padded(cpad))
     out["s2d (6-D transpose)"] = (None, lambda x: networks.conv0_s2d(x, weight, bias))

@@ -96,15 +96,13 @@ def run(device=None, iters: int = 8, n: int = 252, dtype: str = "f32",
     timed = timer(dev, out)
     a, ab = net.encodeA, net.encodeAB
 
-    def both(x, y):
-        return nchw(torch.cat([x, y], dim=0).to(cdt))
+    def stem(x, y):  # as the refiner's forward runs it, the crops' write included
+        return F.relu(networks.stem(a["conv0"], x, y, cdt))
 
-    timed("encodeA (2N batch)",
-          lambda x, y: a["res"](F.relu(a["conv1"](F.relu(a["conv0"](both(x, y)))))),
+    timed("encodeA (2N batch)", lambda x, y: a["res"](F.relu(a["conv1"](stem(x, y)))),
           crops_a, crops_b)
-    timed("conv0 7x7 s2 (6->64)", lambda x, y: F.relu(a["conv0"](both(x, y))), crops_a, crops_b)
-    timed("+conv1 3x3 s2 (64->128)",
-          lambda x, y: F.relu(a["conv1"](F.relu(a["conv0"](both(x, y))))), crops_a, crops_b)
+    timed("conv0 7x7 s2 (6->64)", stem, crops_a, crops_b)
+    timed("+conv1 3x3 s2 (64->128)", lambda x, y: F.relu(a["conv1"](stem(x, y))), crops_a, crops_b)
 
     # encodeAB and the transformer from features made here
     feats_a = uniform(gen, (iters, n, s2, s2, cfg.width2), cdt)

@@ -24,6 +24,7 @@ from foundationpose_cpp_tpu_torch import create_foundationpose_model
 from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
 from foundationpose_cpp_tpu_torch.geometry import transforms
 from foundationpose_cpp_tpu_torch.meshio import procedural
+from foundationpose_cpp_tpu_torch.models import convert_jax, networks
 from foundationpose_cpp_tpu_torch.ops import attention, probe_grid, rasterize_tiled, render
 from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
 from foundationpose_cpp_tpu_torch.utils import synthetic
@@ -620,7 +621,8 @@ def test_track_graph_chain_equals_eager_chain(card):
     model.track(rgb, depth, gt, "house")  # the capture
     program = model._track_cache[("track", "house", (480, 640), 1, False)]
     assert program.captured and program.launches_per_call == {"mha_packed_qkv": 1,
-                                                              "render_views": 1}
+                                                              "render_views": 1,
+                                                              "padded_stem": 1}
     frame = [torch.from_numpy(a).to(card) for a in (rgb, depth)]
     pose, eager = torch.from_numpy(gt).to(card), torch.from_numpy(gt).to(card)
     before = (render.render_views.launches, attention.mha_packed_qkv.launches)
@@ -647,7 +649,8 @@ def test_register_graph_equals_eager(card):
     second = model._run_register(rgb, depth, mask, "house", 1)
     program = model._register_cache[("register", "house", (480, 640), 1, False)]
     assert program.captured and program.launches_per_call == {"mha_packed_qkv": 3,
-                                                              "render_views": 2}
+                                                              "render_views": 2,
+                                                              "padded_stem": 2}
     assert first[1].data_ptr() != second[1].data_ptr()
     frame = [torch.from_numpy(a).to(card) for a in (rgb, depth, mask)]
     with torch.inference_mode():
@@ -696,3 +699,69 @@ def test_program_replays_make_no_host_sync(card):
             torch.cuda.set_sync_debug_mode("default")
     for g, w in zip(got, want):
         assert _tree_max_abs(g, w) == 0.0
+
+
+# the nets' bf16 budget for one conv computed another way (chip_smoke.py's
+# STEM_BF16_TOL): the padded stem changes only the stem's algorithm
+STEM_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["refiner", "scorer"])
+def test_padded_stem_nets_match_the_direct_stem(card, kind, monkeypatch):
+    """The trained bf16 nets at N=252 take the padded stem once a forward
+    and give the outputs of the direct stem (the route forced off) within
+    the bf16 budget of one conv."""
+    net = convert_jax.as_net(str(WEIGHTS / f"{kind}_multi_full.npz"), kind, card, torch.bfloat16)
+    gen = torch.Generator(device=card).manual_seed(11)
+    a, b = (torch.rand((252, 160, 160, 6), generator=gen, device=card) for _ in range(2))
+    with torch.inference_mode():
+        before = networks.padded_stem.launches
+        got = net(a, b)
+        assert networks.padded_stem.launches == before + 1
+        monkeypatch.setattr(networks, "pads_stem", lambda x, dtype: False)
+        want = net(a, b)
+        assert networks.padded_stem.launches == before + 1
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], **STEM_BF16_TOL)
+
+
+def test_padded_stem_counts_on_every_replay(card):
+    """The padded stem's counter reads 2 a Register replay (refiner and
+    scorer) and 1 a Track or track_batch replay, as each program's
+    launches_per_call says."""
+    model, gt, rgb, depth, mask = _house_model(card)
+    poses = np.stack([gt, gt])
+    model.register(rgb, depth, mask, "house")
+    model.track(rgb, depth, gt, "house")
+    model.track_batch(rgb, depth, poses, "house")
+    calls = [
+        (model.register, (rgb, depth, mask, "house"),
+         model._register_cache[("register", "house", (480, 640), 1, False)], 2),
+        (model.track, (rgb, depth, gt, "house"),
+         model._track_cache[("track", "house", (480, 640), 1, False)], 1),
+        (model.track_batch, (rgb, depth, poses, "house"),
+         model._track_cache[("track_batch", "house", (480, 640), 1, 2, False)], 1),
+    ]
+    for call, args, program, want in calls:
+        assert program.captured and program.launches_per_call["padded_stem"] == want
+        before = networks.padded_stem.launches
+        call(*args)
+        assert networks.padded_stem.launches == before + want
+
+
+def test_stem_weights_loaded_after_a_capture_reach_the_next_replay(card):
+    """The padded stem pads the (64, 6, 7, 7) parameter inside the graph, so
+    load_state_dict after the capture changes the next replay's output, and
+    loading the old weights back gives the old output bit for bit."""
+    model, gt, rgb, depth, _ = _house_model(card)
+    model.track(rgb, depth, gt, "house")  # the capture
+    first = model.track(rgb, depth, gt, "house")
+    key = "encodeA.conv0.weight"
+    old = model._refiner.state_dict()[key].clone()
+    assert old.shape == (64, 6, 7, 7)
+    model._refiner.load_state_dict({key: old.flip(-1)}, strict=False)
+    changed = model.track(rgb, depth, gt, "house")
+    model._refiner.load_state_dict({key: old}, strict=False)
+    again = model.track(rgb, depth, gt, "house")
+    assert np.abs(changed - first).max() > 1e-6
+    np.testing.assert_array_equal(again, first)

@@ -6,10 +6,12 @@ the tolerance of the JAX suite's torch oracle (tests/test_convert.py:93-117).
 Full width with the trained npz weights cast to f32, on N=4 pairs: rtol 1e-3,
 atol 1e-4 (five more layers of 512-wide f32 sums in another order). Both
 weight routes (JAX tree -> params_from_jax, npz -> load_npz) give identical
-tensors.
+tensors. The stem's padded route, forced on the CPU in f32, gives the direct
+conv's outputs and gradients within 1e-5, and is not taken on the CPU.
 """
 
 import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,7 @@ import torch
 
 from foundationpose_cpp_tpu.models import checkpoint as jckpt
 from foundationpose_cpp_tpu.models import networks as jnet
-from foundationpose_cpp_tpu_torch.models import convert_jax
+from foundationpose_cpp_tpu_torch.models import convert_jax, networks
 
 WDIR = pathlib.Path(__file__).resolve().parents[1] / "weights"
 SMALL = jnet.NetConfig(
@@ -94,3 +96,111 @@ def test_both_weight_routes_identical(kind, count):
     assert net.cfg.embed_dim == 512 and net.cfg.crop_hw == 160
     assert net.cfg.cross_attention == (kind == "scorer")
     assert net.encodeA["conv0"].weight.dtype == torch.bfloat16
+
+
+# The stem's padded route (``networks.padded_stem``): on the card it runs
+# the 6-channel stem as a 16-channel conv; here it is forced in f32, where it
+# must give the direct conv's sums.
+
+def _stem_case(seed, n=3, crop=32, cout=16):
+    gen = torch.Generator().manual_seed(seed)
+    conv = networks.Conv(6, cout, 7, stride=2)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen))
+        conv.bias.copy_(torch.randn(cout, generator=gen))
+    a = torch.rand((n, crop, crop, 6), generator=gen)
+    b = torch.rand((n, crop, crop, 6), generator=gen)
+    return conv, a, b
+
+
+def _direct_stem(conv, a, b):
+    return conv(torch.cat([a, b], dim=0).permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("seed,n,crop", [(0, 3, 32), (1, 1, 160), (2, 4, 24)])
+def test_padded_stem_equals_the_direct_conv(seed, n, crop):
+    conv, a, b = _stem_case(seed, n, crop)
+    before = networks.padded_stem.launches
+    with torch.no_grad():
+        got = networks.padded_stem(conv, a, b, torch.float32)
+        want = _direct_stem(conv, a, b)
+    assert networks.padded_stem.launches == before + 1
+    assert got.shape == want.shape == (2 * n, 16, crop // 2, crop // 2)
+    assert got.dtype == torch.float32
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_padded_stem_gradients_reach_the_parameter_as_the_direct_route():
+    conv, a, b = _stem_case(3)
+    a.requires_grad_(True)
+    probe = torch.randn((6, 16, 16, 16), generator=torch.Generator().manual_seed(4))
+    grads = []
+    for run in (lambda: networks.padded_stem(conv, a, b, torch.float32),
+                lambda: _direct_stem(conv, a, b)):
+        conv.zero_grad()
+        a.grad = None
+        (run() * probe).sum().backward()
+        grads.append((conv.weight.grad.clone(), conv.bias.grad.clone(), a.grad.clone()))
+    (w_pad, b_pad, a_pad), (w_dir, b_dir, a_dir) = grads
+    assert w_pad.shape == (16, 6, 7, 7)
+    torch.testing.assert_close(w_pad, w_dir, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b_pad, b_dir, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(a_pad, a_dir, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["refiner", "scorer"])
+def test_forced_padded_stem_through_a_net_equals_the_direct_forward(kind, monkeypatch):
+    cfg = networks.NetConfig(width1=8, width2=16, embed_dim=64, num_heads=4, crop_hw=32,
+                             cross_attention=kind == "scorer")
+    net = networks.init_net(kind, cfg, seed=5)
+    a, b = (torch.from_numpy(x) for x in _inputs(3, 32, 6))
+    with torch.no_grad():
+        want = net(a, b)
+        monkeypatch.setattr(networks, "pads_stem", lambda x, dtype: True)
+        before = networks.padded_stem.launches
+        got = net(a, b)
+    assert networks.padded_stem.launches == before + 1
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("device,dtype,channels,padded", [
+    ("cuda", torch.bfloat16, 6, True),
+    ("cuda", torch.float16, 6, True),
+    ("cuda", torch.bfloat16, 3, True),
+    ("cuda", torch.float32, 6, False),
+    ("cuda", torch.bfloat16, 8, False),
+    ("cuda", torch.bfloat16, 16, False),
+    ("cpu", torch.bfloat16, 6, False),
+    ("cpu", torch.float32, 6, False),
+])
+def test_stem_route_engages_on_the_card_in_16_bit_on_unaligned_channels(
+        device, dtype, channels, padded):
+    crops = types.SimpleNamespace(device=torch.device(device), shape=(2, 160, 160, channels))
+    assert networks.pads_stem(crops, dtype) is padded
+
+
+@pytest.mark.parametrize("kind", ["refiner", "scorer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_route_not_taken_on_the_cpu(kind, dtype):
+    cfg = networks.NetConfig(width1=8, width2=16, embed_dim=64, num_heads=4, crop_hw=32,
+                             cross_attention=kind == "scorer")
+    net = networks.init_net(kind, cfg, seed=6).cast_matmul_weights(dtype)
+    a, b = (torch.from_numpy(x) for x in _inputs(2, 32, 7))
+    before = networks.padded_stem.launches
+    with torch.no_grad():
+        out = net(a, b)
+    assert networks.padded_stem.launches == before
+    assert all(torch.isfinite(v).all() for v in out.values())
+
+
+@pytest.mark.parametrize("kind", ["refiner", "scorer"])
+def test_state_dict_keys_and_shapes_are_the_checkpoints(kind):
+    net = networks.init_net(kind, networks.NetConfig(cross_attention=kind == "scorer"))
+    ckpt = convert_jax.load_npz(str(WDIR / f"{kind}_multi_full.npz"))
+    state = net.state_dict()
+    assert state.keys() == ckpt.keys()
+    assert {k: tuple(v.shape) for k, v in state.items()} == \
+        {k: tuple(v.shape) for k, v in ckpt.items()}
+    assert state["encodeA.conv0.weight"].shape == (64, 6, 7, 7)

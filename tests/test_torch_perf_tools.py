@@ -3,8 +3,8 @@
 - ``networks.conv0_s2d`` against JAX ``networks._conv0_s2d`` on the same
   seeded numpy inputs and against the port's direct 7x7/s2 conv, atol 1e-4
   (as ``tests/test_training.py``'s s2d test);
-- ``tools/bench_stem.py``'s channel-padded, s2d, polyphase and blocked stems
-  against the direct stem in f32, atol 1e-4;
+- ``tools/bench_stem.py``'s as-served, channel-padded, s2d, polyphase and
+  blocked stems against the direct stem in f32, atol 1e-4;
 - ``tools/bench_attn.py``'s split-weight encodeAB against its concat form,
   and the concat form against the JAX ``_res_block`` / ``_conv_relu`` chain
   on parameters carried across by ``models/convert_jax``, atol 1e-4 (f32);
@@ -202,7 +202,7 @@ TOOLS = {  # name -> (run, the JAX tool's labels, extra keys, keys that are null
         jax_labels("profile_nets.py"), {"GMAC per forward", "FULL refiner TFLOP/s"}, set()),
     "bench_stem": (
         lambda mp: bench_stem.run("cpu", iters=1, n=2, net_cfg=narrow_cfg())["ms"],
-        jax_labels("bench_stem.py"), set(), set()),
+        jax_labels("bench_stem.py"), {"as served"}, set()),
     "bench_attn": (
         lambda mp: bench_attn.run("cpu", iters=1, n=2, net_cfg=narrow_cfg()),
         jax_labels("bench_attn.py", scope="main"),
