@@ -30,6 +30,10 @@ it and read just after:
   against their plain versions; Track, scoring and Register on it;
 - eight cubes tracked in one ``track_batch`` (the multi-object
   configuration);
+- LM-O's eight distinct stand-in meshes (``benchmark/assets/lmo8_*``) in
+  one ``track_batch``: K2 over their mesh table against its plain version
+  at N=8 and 160x160, with its times and bound, then the mixed program's
+  replay against its eager run and its launches (one K2, one K1 a call);
 - 64 chained packed steps and a Register under
   ``torch.cuda.set_sync_debug_mode("error")``;
 - every program key of the pipeline (Register at refine_itr 1 and 2,
@@ -1119,6 +1123,125 @@ def run_multi_object(torch, np, fp, tproc, syn, transforms, render, sweep, kerne
         raise AssertionError(f"multi-object launched {counts}, want (5, 0, 5, 0)")
     return dict(launches=counts, ms_per_object=ms, render=render_rows, cube=cube, rgb=rgb,
                 depth=depth, starts=starts, gts=gts, model=model)
+
+
+def run_mixed_meshes(torch, np, fp, syn, transforms, render, sweep, profiling, kernels, K):
+    """Distinct meshes in one ``track_batch`` (the lmo8 configuration): LM-O's
+    eight stand-in meshes (the committed ``benchmark/assets/lmo8_*.ply``,
+    5.7k-22.5k faces) on a 4x2 grid 0.24 x 0.30 m apart at 1.0 m, each
+    rendered by render_scene and composited by nearest depth into one
+    480x640 frame. K2 over their mesh table (one launch pair, each view on
+    its own mesh and diameter) against its plain version at N=8 and 160x160,
+    with the wrapper's, the queued and the plain ms, eight one-view
+    launches' ms and the bound; then the mixed program from poses 2 deg /
+    1 mm off: its replay against its function run eagerly (``check_program``)
+    and, with the counts set to 0 just before a call, one K2 and one K1
+    launch a call."""
+    from foundationpose_cpp_tpu_torch.meshio.mesh_loader import load_mesh
+    from foundationpose_cpp_tpu_torch.ops import rasterize as ras
+    from foundationpose_cpp_tpu_torch.pipeline.renderer import (
+        MeshConstants, MeshSet, render_branch,
+    )
+    from foundationpose_cpp_tpu_torch.utils import metrics
+
+    config = json.loads((ROOT / "benchmark" / "configs" / "lmo8.json").read_text())
+    assets = [load_mesh(m["name"], str(ROOT / m["file"])) for m in config["meshes"]]
+    names = tuple(a.name for a in assets)
+    h, w, n, crop = 480, 640, len(assets), 160
+    meshes = {a.name: MeshConstants.from_asset(a, "cuda") for a in assets}
+    mesh_set = MeshSet.build(names, meshes)
+    rng = np.random.default_rng(18)
+    gts = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    for i in range(n):
+        gts[i, :3, :3] = syn.euler_xyz_deg(rng.uniform(-180, 180, 3))
+        gts[i, :3, 3] = [(i % 4 - 1.5) * 0.24, (i // 4 - 0.5) * 0.30, 1.0]
+
+    poses = torch.from_numpy(gts).cuda()
+    Kt = torch.from_numpy(K).cuda()
+    tfs = transforms.compute_crop_window_tf(poses, Kt, (crop, crop), 1.2, mesh_set.diameter)
+    clip_mat = transforms.pose_clip_matrix(poses, transforms.construct_bbox2d(tfs, crop, crop),
+                                           Kt, h, w)
+    cfg = fp.FoundationPoseConfig()
+    tail = (crop, crop, mesh_set.diameter, cfg.min_depth, cfg.max_depth, cfg.w_ambient,
+            cfg.w_diffuse)
+    set_args = (mesh_set.vertices, mesh_set.normals, mesh_set.texcoords, mesh_set.faces,
+                mesh_set.face_valid, mesh_set.texture, poses, clip_mat)
+    reset_counts((render.render_views,))
+    got = render.render_views(*set_args, *tail, table=mesh_set.table)
+    want = render.render_views_plain(*set_args, *tail, table=mesh_set.table)
+    torch.cuda.synchronize()
+    bad, err = sweep.render_disagreement(got, want, RENDER_TOL)
+    fg = (want.abs().sum(-1) > 0).float().mean().item()
+    if not (bad < RENDER_BAD_FRAC and fg > 0.1 and torch.isfinite(got).all()
+            and render.render_views.launches == 1):
+        raise AssertionError(f"render kernel over the lmo8 table: {bad:.4%} pixels off, fg "
+                             f"{fg:.2f}, {render.render_views.launches} launches")
+
+    def one_view_each():
+        for i, name in enumerate(names):
+            m = meshes[name]
+            render_branch(m, poses[i:i + 1], clip_mat[i:i + 1], crop, crop, cfg)
+
+    k_ms = cuda_ms(torch, lambda: render.render_views(*set_args, *tail, table=mesh_set.table), 10)
+    q_ms = cuda_ms_queued(torch, lambda: render.render_views(*set_args, *tail,
+                                                             table=mesh_set.table), 10)
+    p_ms = cuda_ms(torch, lambda: render.render_views_plain(*set_args, *tail,
+                                                            table=mesh_set.table), 1, warmup=0)
+    each_ms = cuda_ms_queued(torch, one_view_each, 10)
+    needed = 0
+    for i, name in enumerate(names):
+        m = meshes[name]
+        clip = transforms.transform_points_homogeneous(clip_mat[i:i + 1], m.vertices)
+        needed += tests_needed(torch, ras, clip, m.faces, m.face_valid, crop, crop)
+    b_ms, b_by = bound(nbytes(*set_args, mesh_set.table.rows, mesh_set.diameter, got),
+                       needed * RENDER_TEST_FLOPS, F32_FLOPS)
+    log(f"render lmo8 table N={n} {crop}x{crop} {int(mesh_set.face_valid.sum())} faces in "
+        f"{n} meshes: pixels_off={bad:.4%} max_abs_err={err:.3e}; wrapper_ms={k_ms:.4f} "
+        f"(checks + 2 launches) wrapper_ms_queued={q_ms:.4f} plain_ms={p_ms:.4f} "
+        f"{n}_one_view_launches_ms_queued={each_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+        f"{needed} face-pixel tests needed)")
+
+    rgb, depth = np.zeros((h, w, 3), np.uint8), np.zeros((h, w), np.float32)
+    for i, name in enumerate(names):
+        rgb_i, depth_i, _ = syn.render_scene(meshes[name], gts[i], K, h, w)
+        nearer = (depth_i > 0) & ((depth == 0) | (depth_i < depth))
+        rgb[nearer], depth[nearer] = rgb_i[nearer], depth_i[nearer]
+    starts = gts.copy()
+    for i in range(n):
+        starts[i, :3, :3] = rotvec_matrix(np, rng.normal(size=3), 2.0) @ gts[i, :3, :3]
+        d = rng.normal(size=3)
+        starts[i, :3, 3] += 0.001 * d / np.linalg.norm(d)
+    model = fp.create_foundationpose_model(
+        str(ROOT / "weights" / "refiner_multi_full.npz"),
+        str(ROOT / "weights" / "scorer_multi_full.npz"), assets, K, h, w)
+    model.track_batch(rgb, depth, starts, list(names))  # the capture
+    program = model._track_cache[("track_batch", names, (h, w), 1, n, False)]
+    row = check_program(torch, np, profiling, f"track_batch N={n} (lmo8, distinct meshes)",
+                        program, [torch.from_numpy(a).cuda() for a in (rgb, depth, starts)], 20,
+                        busy=True)
+    reset_counts(kernels)
+    out = model.track_batch(rgb, depth, starts, list(names))
+    counts = counts_of(kernels)
+    alone = np.concatenate([model.track_batch(rgb, depth, starts[i:i + 1], name)
+                            for i, name in enumerate(names)])
+    rot = [metrics.rotation_error_deg(p, g) for p, g in zip(out, gts)]
+    trans = [float(np.linalg.norm(p[:3, 3] - g[:3, 3])) for p, g in zip(out, gts)]
+    vs_alone = [metrics.rotation_error_deg(p, q) for p, q in zip(out, alone)]
+    log(f"mixed meshes: {n} objects {names}, launches_per_call {program.launches_per_call}; "
+        f"a call's launches (packed attention, head-split attention, render, rasterize)="
+        f"{counts}; meshset_builds {model.meshset_builds}; rot_err_deg from 2 deg off "
+        + " ".join(f"{r:.2f}" for r in rot) + " | t_err_mm "
+        + " ".join(f"{t * 1e3:.2f}" for t in trans) + " | deg from each object's one-name "
+        "call " + " ".join(f"{v:.3f}" for v in vs_alone))
+    per_call = program.launches_per_call
+    if (counts != (1, 0, 1, 0) or per_call.get("render_views") != 1
+            or per_call.get("mha_packed_qkv") != 1 or model.meshset_builds != 1
+            or not np.isfinite(out).all()):
+        raise AssertionError(f"mixed meshes launched {counts} ({per_call}), "
+                             f"{model.meshset_builds} mesh-set builds")
+    return dict(render=dict(name="lmo8 table", n=n, err=err, ms=k_ms, queued_ms=q_ms,
+                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, one_view_ms=each_ms),
+                program=row)
 
 
 def run_sync_free(torch, np, main):
@@ -2250,6 +2373,8 @@ def main() -> int:
               sweep, counted, K, pathlib.Path(tmp))
     multi = phase("multi-object", run_multi_object, torch, np, fp, tproc, syn, transforms,
                   render, sweep, counted, K)
+    phase("mixed meshes", run_mixed_meshes, torch, np, fp, syn, transforms, render, sweep,
+          profiling, counted, K)
     phase("sync", run_sync_free, torch, np, launches)
     phase("graphs", run_graphs, torch, np, fp, profiling, launches, multi, K)
     with tempfile.TemporaryDirectory() as tmp:

@@ -70,6 +70,16 @@ using raster_tile::NTHREAD;
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
+// A mesh table's row per view (int32): its mesh's first vertex and vertex
+// count in the concatenated vertices, normals and texcoords, its first face
+// and face count (padded) in the concatenated faces and face flags, its first
+// texel and texture height and width in the concatenated texels, and the
+// view's first slot in the verts scratch (ops/render.py ViewTable).
+constexpr int TABLE_COLS = 8;
+constexpr int COL_VERTEX_FIRST = 0, COL_VERTEX_COUNT = 1, COL_FACE_FIRST = 2,
+              COL_FACE_COUNT = 3, COL_TEXEL_FIRST = 4, COL_TEX_H = 5, COL_TEX_W = 6,
+              COL_SCRATCH_FIRST = 7;
+
 // m[0] x + m[1] y + m[2] z, accumulated as a matrix product's inner loop
 __device__ __forceinline__ float rotate_row(const float* m, float x, float y, float z) {
   return __fmaf_rn(m[2], z, __fmaf_rn(m[1], y, __fmul_rn(m[0], x)));
@@ -77,15 +87,32 @@ __device__ __forceinline__ float rotate_row(const float* m, float x, float y, fl
 
 // Per (view, vertex): clip = clip_mat (v, 1); xyz = pose (v, 1); the Lambert
 // term clamp(-n_z / |n|, 0, 1) of the rotated normal. verts holds
-// (clip.xyzw | xyz, lambert) as two float4.
+// (clip.xyzw | xyz, lambert) as two float4. With TABLE a launch of
+// (vertex blocks, N) walks each view's own mesh: row n of the table gives the
+// mesh's first vertex in the concatenated vertices and its vertex count, and
+// the view's first slot in verts.
+template <bool TABLE>
 __global__ void vertex_kernel(const float* __restrict__ vertices,
                               const float* __restrict__ normals,
                               const float* __restrict__ poses,
                               const float* __restrict__ clip_mat, float4* __restrict__ verts,
-                              int N, int V) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)N * V) return;
-  const int n = (int)(i / V), vi = (int)(i % V);
+                              int N, int V, const int* __restrict__ table) {
+  int n, vi;
+  long long slot;
+  if constexpr (TABLE) {
+    const int* row = table + (size_t)blockIdx.y * TABLE_COLS;
+    const int local = blockIdx.x * blockDim.x + threadIdx.x;
+    if (local >= row[COL_VERTEX_COUNT]) return;
+    n = blockIdx.y;
+    vi = row[COL_VERTEX_FIRST] + local;
+    slot = (long long)row[COL_SCRATCH_FIRST] + local;
+  } else {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (long long)N * V) return;
+    n = (int)(i / V);
+    vi = (int)(i % V);
+    slot = i;
+  }
   const float* P = poses + (size_t)n * 16;
   const float* M = clip_mat + (size_t)n * 16;
   const float x = vertices[3 * vi], y = vertices[3 * vi + 1], z = vertices[3 * vi + 2];
@@ -103,24 +130,43 @@ __global__ void vertex_kernel(const float* __restrict__ vertices,
   const float tz = rotate_row(P + 8, nx, ny, nz);
   const float norm = sqrtf(__fmaf_rn(tz, tz, __fmaf_rn(ty, ty, __fmul_rn(tx, tx))));
   cam.w = norm == 0.0f ? 0.0f : clamp01(__fdiv_rn(-tz, fmaxf(norm, 1e-30f)));
-  verts[2 * i] = clip;
-  verts[2 * i + 1] = cam;
+  verts[2 * slot] = clip;
+  verts[2 * slot + 1] = cam;
 }
 
-template <int RW, int RH>
+// With TABLE, row n of the table selects view n's mesh out of the
+// concatenated faces, face flags, texcoords and texels, and its scratch
+// vertices; its diameter is diameters[n], whose half is the one-mesh launch's
+// ds (halving an f32 is exact), and F, Th, Tw and ds are read there.
+template <int RW, int RH, bool TABLE>
 __global__ void __launch_bounds__(NTHREAD)
 render_kernel(const float4* __restrict__ verts, const float* __restrict__ coeffs,
               const float* __restrict__ texcoords, const int* __restrict__ faces,
               const unsigned char* __restrict__ face_valid, const float* __restrict__ tex,
               const float* __restrict__ poses, float* __restrict__ out, int F, int V, int H,
               int W, int Th, int Tw, float ds, float min_depth, float max_depth,
-              float w_ambient, float w_diffuse) {
+              float w_ambient, float w_diffuse, const int* __restrict__ table,
+              const float* __restrict__ diameters) {
   using Shared = raster_tile::Shared<RW, RH>;
   extern __shared__ __align__(16) unsigned char shared_raw[];
   Shared& sh = *reinterpret_cast<Shared*>(shared_raw);
   const int n = blockIdx.z;
   const int rx0 = blockIdx.x * RW, ry0 = blockIdx.y * RH;
-  const float4* view_verts = verts + (size_t)n * V * 2;
+  const float4* view_verts;
+  if constexpr (TABLE) {
+    const int* row = table + (size_t)n * TABLE_COLS;
+    view_verts = verts + (size_t)row[COL_SCRATCH_FIRST] * 2;
+    faces += (size_t)row[COL_FACE_FIRST] * 3;
+    face_valid += row[COL_FACE_FIRST];
+    texcoords += (size_t)row[COL_VERTEX_FIRST] * 2;
+    tex += (size_t)row[COL_TEXEL_FIRST] * 3;
+    F = row[COL_FACE_COUNT];
+    Th = row[COL_TEX_H];
+    Tw = row[COL_TEX_W];
+    ds = diameters[n] * 0.5f;
+  } else {
+    view_verts = verts + (size_t)n * V * 2;
+  }
   const raster_tile::View view{view_verts, 2, faces, face_valid,
                                coeffs == nullptr ? nullptr : coeffs + (size_t)n * F * 15,
                                F, H, W};
@@ -219,23 +265,34 @@ struct RenderArgs {
   float* out;
   int N, F, V, H, W, Th, Tw;
   float ds, min_depth, max_depth, w_ambient, w_diffuse;
+  const int* table;  // null: one mesh for every view
+  const float* diameters;
 };
 
-template <int RW, int RH>
+template <int RW, int RH, bool TABLE>
 cudaError_t launch_render(const RenderArgs& a, cudaStream_t stream) {
   const int shared = (int)sizeof(raster_tile::Shared<RW, RH>);
-  cudaError_t err = cudaFuncSetAttribute(render_kernel<RW, RH>,
+  cudaError_t err = cudaFuncSetAttribute(render_kernel<RW, RH, TABLE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
   if (err != cudaSuccess) return err;
   dim3 grid((a.W + RW - 1) / RW, (a.H + RH - 1) / RH, a.N);
-  render_kernel<RW, RH><<<grid, NTHREAD, shared, stream>>>(
+  render_kernel<RW, RH, TABLE><<<grid, NTHREAD, shared, stream>>>(
       a.verts, a.coeffs, a.texcoords, a.faces, a.face_valid, a.tex, a.poses, a.out, a.F, a.V,
-      a.H, a.W, a.Th, a.Tw, a.ds, a.min_depth, a.max_depth, a.w_ambient, a.w_diffuse);
+      a.H, a.W, a.Th, a.Tw, a.ds, a.min_depth, a.max_depth, a.w_ambient, a.w_diffuse, a.table,
+      a.diameters);
   return cudaGetLastError();
 }
 
 constexpr int RW = RASTER_REGION_W, RH = RASTER_REGION_H;
 constexpr int FEW_RW = RASTER_FEW_REGION_W, FEW_RH = RASTER_FEW_REGION_H;
+
+// The render kernel with many views' regions, or with few (FEW_BLOCKS).
+template <bool TABLE>
+cudaError_t launch_regions(const RenderArgs& a, cudaStream_t stream) {
+  const long long blocks = (long long)a.N * ((a.W + RW - 1) / RW) * ((a.H + RH - 1) / RH);
+  if (blocks < RASTER_FEW_BLOCKS) return launch_render<FEW_RW, FEW_RH, TABLE>(a, stream);
+  return launch_render<RW, RH, TABLE>(a, stream);
+}
 
 }  // namespace
 
@@ -255,10 +312,10 @@ extern "C" int fp_render_views(const void* vertices, const void* normals, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (transform != 0) {
     const long long total = (long long)N * V;
-    vertex_kernel<<<(unsigned int)((total + 255) / 256), 256, 0, s>>>(
+    vertex_kernel<false><<<(unsigned int)((total + 255) / 256), 256, 0, s>>>(
         static_cast<const float*>(vertices), static_cast<const float*>(normals),
         static_cast<const float*>(poses), static_cast<const float*>(clip_mat),
-        static_cast<float4*>(verts), N, V);
+        static_cast<float4*>(verts), N, V, nullptr);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -267,10 +324,42 @@ extern "C" int fp_render_views(const void* vertices, const void* normals, const 
                      static_cast<const unsigned char*>(face_valid),
                      static_cast<const float*>(tex), static_cast<const float*>(poses),
                      static_cast<float*>(out), N, F, V, H, W, Th, Tw,
-                     ds, min_depth, max_depth, w_ambient, w_diffuse};
-  const long long blocks = (long long)N * ((W + RW - 1) / RW) * ((H + RH - 1) / RH);
-  if (blocks < RASTER_FEW_BLOCKS) return (int)launch_render<FEW_RW, FEW_RH>(a, s);
-  return (int)launch_render<RW, RH>(a, s);
+                     ds, min_depth, max_depth, w_ambient, w_diffuse, nullptr, nullptr};
+  return (int)launch_regions<false>(a, s);
+}
+
+// N views, each of its own mesh: vertices, normals (sum V, 3), texcoords
+// (sum V, 2), faces (sum F, 3) int32 with indices local to their mesh,
+// face_valid (sum F,) bytes and tex (sum Th * Tw, 3) concatenate the meshes;
+// table (N, TABLE_COLS) int32 selects view n's mesh and its slots in the
+// verts scratch (sum over the views of their vertex counts, 8 floats each);
+// diameters (N,) f32; poses, clip_mat (N, 4, 4); out (N, H, W, 6).
+// V_max is the largest vertex count of a view. Both kernels run, as
+// fp_render_views runs them with transform != 0, and each view computes
+// what a one-mesh launch of its mesh computes for it.
+extern "C" int fp_render_views_table(const void* vertices, const void* normals,
+                                     const void* texcoords, const void* faces,
+                                     const void* face_valid, const void* tex,
+                                     const void* poses, const void* clip_mat, const void* table,
+                                     const void* diameters, void* verts, void* out, int N,
+                                     int V_max, int H, int W, float min_depth, float max_depth,
+                                     float w_ambient, float w_diffuse, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* rows = static_cast<const int*>(table);
+  vertex_kernel<true><<<dim3((unsigned int)((V_max + 255) / 256), (unsigned int)N), 256, 0, s>>>(
+      static_cast<const float*>(vertices), static_cast<const float*>(normals),
+      static_cast<const float*>(poses), static_cast<const float*>(clip_mat),
+      static_cast<float4*>(verts), N, V_max, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const RenderArgs a{static_cast<const float4*>(verts), nullptr,
+                     static_cast<const float*>(texcoords), static_cast<const int*>(faces),
+                     static_cast<const unsigned char*>(face_valid),
+                     static_cast<const float*>(tex), static_cast<const float*>(poses),
+                     static_cast<float*>(out), N, 0, 0, H, W, 0, 0,
+                     0.0f, min_depth, max_depth, w_ambient, w_diffuse, rows,
+                     static_cast<const float*>(diameters)};
+  return (int)launch_regions<true>(a, s);
 }
 
 // The build's choices, for the smoke run and the sweep tool: (region_w,

@@ -93,7 +93,7 @@ def compute_crop_window_tf(
     K: torch.Tensor,
     out_hw: tuple[int, int],
     crop_ratio: float,
-    mesh_diameter: float,
+    mesh_diameter: float | torch.Tensor,
 ) -> torch.Tensor:
     """Per-pose 3x3 affine mapping original-image pixels -> crop-window pixels.
 
@@ -103,15 +103,28 @@ def compute_crop_window_tf(
     are rounded (std::round) to integer pixels before the scale is computed.
 
     poses (N, 4, 4), K (3, 3) -> (N, 3, 3) with last row [0, 0, 1].
+    mesh_diameter: a number, or an (N,) f32 tensor of each pose's mesh's.
+    The tensor's window radius is an f32 product, which may lie an ulp or
+    two from the number's (a product in double, rounded once); the bounds
+    are rounded to whole pixels, so the windows differ only where a bound
+    lies that close to a half pixel.
     """
     out_h, out_w = out_hw
-    r = mesh_diameter * crop_ratio / 2.0
-    offsets = _constant(
-        ((0.0, 0.0, 0.0), (r, 0.0, 0.0), (-r, 0.0, 0.0), (0.0, r, 0.0), (0.0, -r, 0.0)),
-        poses.device,
-    )  # (5, 3)
+    if isinstance(mesh_diameter, torch.Tensor):
+        r = mesh_diameter * (crop_ratio / 2.0)
+        probes = _constant(
+            ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+             (0.0, -1.0, 0.0)), poses.device,
+        )
+        offsets = r[:, None, None] * probes  # (N, 5, 3): 0, r or -r exactly
+    else:
+        r = mesh_diameter * crop_ratio / 2.0
+        offsets = _constant(
+            ((0.0, 0.0, 0.0), (r, 0.0, 0.0), (-r, 0.0, 0.0), (0.0, r, 0.0), (0.0, -r, 0.0)),
+            poses.device,
+        )[None]  # (1, 5, 3)
     centers = poses[:, :3, 3]  # (N, 3)
-    pts = centers[:, None, :] + offsets[None, :, :]  # (N, 5, 3)
+    pts = centers[:, None, :] + offsets  # (N, 5, 3)
     projected = torch.einsum("ij,npj->npi", K, pts)  # (N, 5, 3)
     uvs = projected[..., :2] / projected[..., 2:3]  # (N, 5, 2)
     center_uv = uvs[:, 0, :]
@@ -295,7 +308,7 @@ def apply_refine_delta(
     poses: torch.Tensor,
     trans_out: torch.Tensor,
     rot_out: torch.Tensor,
-    mesh_diameter: float,
+    mesh_diameter: float | torch.Tensor,
     rot_normalizer: float = 0.349065850398865,
 ) -> torch.Tensor:
     """Compose refiner deltas onto hypothesis poses (RefinePostProcess,
@@ -303,8 +316,11 @@ def apply_refine_delta(
       t' = t + trans_out * diameter/2
       rv = tanh(rot_out) * rot_normalizer
       R' = axis_angle(rv).T @ R
+    mesh_diameter: a number, or an (N,) f32 tensor of each pose's mesh's
+    (whose halves are exactly the f32 a number's half rounds to).
     """
-    trans_delta = trans_out * (mesh_diameter / 2.0)
+    half = mesh_diameter / 2.0
+    trans_delta = trans_out * (half[:, None] if isinstance(half, torch.Tensor) else half)
     rv = torch.tanh(rot_out) * rot_normalizer
     rot_delta_t = axis_angle_to_matrix(rv).transpose(-1, -2)
     out = poses.clone()

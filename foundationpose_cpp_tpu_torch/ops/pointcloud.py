@@ -13,7 +13,7 @@ import torch
 def threshold_and_downscale_pointcloud(
     xyz: torch.Tensor,
     poses: torch.Tensor,
-    downscale_factor: float,
+    downscale_factor: float | torch.Tensor,
     min_depth: float,
     max_depth: float,
 ) -> torch.Tensor:
@@ -24,10 +24,13 @@ def threshold_and_downscale_pointcloud(
     coordinate whose |value| > max_depth, and all coordinates of invalid
     points -- per coordinate, like the reference kernel (render.cu:99-116).
 
-    xyz (N, H, W, 3), poses (N, 4, 4).
+    xyz (N, H, W, 3), poses (N, 4, 4); downscale_factor a number, or an
+    (N,) tensor of each pose's in xyz's dtype.
     """
     t = poses[:, :3, 3][:, None, None, :]
     invalid = xyz[..., 2:3] < min_depth
+    if isinstance(downscale_factor, torch.Tensor):
+        downscale_factor = downscale_factor[:, None, None, None]
     scaled = (xyz - t) / downscale_factor
     drop = (torch.abs(scaled) > max_depth) | invalid
     return torch.where(drop, torch.zeros_like(scaled), scaled)

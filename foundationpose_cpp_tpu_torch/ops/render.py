@@ -13,11 +13,17 @@ into a shared-memory depth buffer of 64-bit keys and builds every per-face
 quantity itself (``csrc/raster_tile.cuh``). ``render_prepass`` and
 ``face_pixel_bbox`` are the plain versions of what it builds; nothing on the
 card's path calls them.
+
+One launch may render each view of its own mesh: the meshes concatenated,
+a ``ViewTable`` whose row per view selects the view's mesh (its vertices,
+faces and texels), and a diameter a view. A view then computes what a
+one-mesh launch of its mesh computes for it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -44,14 +50,63 @@ def vertex_attributes(
     )
 
 
+# the columns of a ViewTable row (csrc/render.cu TABLE_COLS)
+TABLE_COLS = ("vertex_first", "vertex_count", "face_first", "face_count", "texel_first",
+              "tex_h", "tex_w", "scratch_first")
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewTable:
+    """Which mesh each view of a launch renders, out of concatenated meshes:
+    ``rows`` (N, 8) int32 on the views' device, one row a view with the
+    columns of ``TABLE_COLS`` (the mesh's first vertex and vertex count, its
+    first face and face count, its first texel and texture size, the view's
+    first slot of the kernel's vertex scratch); ``vertex_max``, the largest
+    vertex count of a view, and ``scratch_vertices``, the scratch's slots,
+    as numbers for the launch."""
+
+    rows: torch.Tensor
+    vertex_max: int
+    scratch_vertices: int
+
+    @staticmethod
+    def build(spans: list[tuple[int, ...]], device) -> "ViewTable":
+        """From each view's (vertex_first, vertex_count, face_first,
+        face_count, texel_first, tex_h, tex_w)."""
+        rows, first = [], 0
+        for span in spans:
+            rows.append([*span, first])
+            first += span[1]
+        return ViewTable(torch.tensor(rows, dtype=torch.int32, device=device),
+                         max(span[1] for span in spans), first)
+
+
 def render_views_plain(
     vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
-    h: int, w: int, diameter: float, min_depth: float, max_depth: float,
+    h: int, w: int, diameter, min_depth: float, max_depth: float,
     w_ambient: float, w_diffuse: float, rasterizer=ras.rasterize,
+    table: ViewTable | None = None,
 ) -> torch.Tensor:
     """The plain PyTorch version: the unfused render chain, any device.
     ``rasterizer`` is ``ops.rasterize.rasterize`` or a function with its
-    signature and contract (``rasterize_scatter_plain``)."""
+    signature and contract (``rasterize_scatter_plain``). With a ``table``
+    the mesh tensors concatenate meshes (``texture`` (texels, 3)) and
+    ``diameter`` is (N,): each mesh's views are rendered together, on that
+    mesh and the diameter of its first view."""
+    if table is not None:
+        out = torch.empty((poses.shape[0], h, w, 6), dtype=torch.float32, device=poses.device)
+        meshes: dict[tuple, list[int]] = {}
+        for n, row in enumerate(table.rows.tolist()):
+            meshes.setdefault(tuple(row[:7]), []).append(n)
+        for (v0, nv, f0, nf, t0, th, tw), views in meshes.items():
+            idx = torch.tensor(views, device=poses.device)
+            out[idx] = render_views_plain(
+                vertices[v0:v0 + nv], normals[v0:v0 + nv], texcoords[v0:v0 + nv],
+                faces[f0:f0 + nf], face_valid[f0:f0 + nf],
+                texture[t0:t0 + th * tw].reshape(th, tw, 3), poses[idx], clip_mat[idx], h, w,
+                float(diameter[views[0]]), min_depth, max_depth, w_ambient, w_diffuse, rasterizer,
+            )
+        return out
     clip = transforms.transform_points_homogeneous(clip_mat, vertices)
     rast = rasterizer(clip, faces, h, w, face_valid=face_valid)
     attrs = vertex_attributes(poses, vertices, normals, texcoords)
@@ -143,6 +198,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float] * 5
         + [ctypes.c_int, ctypes.c_void_p]
     )
+    lib.fp_render_views_table.restype = ctypes.c_int
+    lib.fp_render_views_table.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+    )
     lib.fp_render_config.restype = None
     lib.fp_render_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
     return lib
@@ -164,8 +223,10 @@ def kernel_config() -> dict:
                      "few_region_w", "few_region_h", "few_shared_bytes", "few_blocks"), cfg))
 
 
-def _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses) -> None:
-    """Raise on what the kernel does not take."""
+def _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses,
+                texture_dim: int = 3) -> None:
+    """Raise on what the kernel does not take (texture_dim 2: a table's
+    concatenated texels)."""
     dev = poses.device
     v = texcoords.shape[0]
     for name, t, shape in (("vertices", vertices, (v, 3)), ("normals", normals, (v, 3)),
@@ -182,19 +243,24 @@ def _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses)
     if (face_valid.dtype != torch.bool or face_valid.device != dev
             or face_valid.shape != faces.shape[:1]):
         raise ValueError("render kernel: face_valid must be (F,) bool on the same device")
-    if texture.dim() != 3 or texture.shape[-1] != 3:
-        raise ValueError(f"render kernel: texture must be (Th, Tw, 3), got {tuple(texture.shape)}")
+    if texture.dim() != texture_dim or texture.shape[-1] != 3:
+        want = "(Th, Tw, 3)" if texture_dim == 3 else "(texels, 3)"
+        raise ValueError(f"render kernel: texture must be {want}, got {tuple(texture.shape)}")
 
 
 def render_views(
     vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
-    h: int, w: int, diameter: float, min_depth: float, max_depth: float,
-    w_ambient: float, w_diffuse: float,
+    h: int, w: int, diameter, min_depth: float, max_depth: float,
+    w_ambient: float, w_diffuse: float, table: ViewTable | None = None,
 ) -> torch.Tensor:
     """Render N views into (N, h, w, 6) f32 (shaded rgb | downscaled xyz).
 
     vertices/normals (V, 3), texcoords (V, 2), faces (F, 3) int32,
-    face_valid (F,) bool, texture (Th, Tw, 3), poses/clip_mat (N, 4, 4).
+    face_valid (F,) bool, texture (Th, Tw, 3), poses/clip_mat (N, 4, 4),
+    diameter a number. With a ``table`` the mesh tensors concatenate
+    several meshes, texture is (texels, 3), and diameter is an (N,) f32
+    tensor on the views' device, which the card halves (exactly, so a
+    view's scale is the f32 that its number's half rounds to).
     CPU tensors go through the plain version. CUDA tensors go through the
     kernel (these checks, two allocations and its two launches, no other
     tensor op), which raises on what it does not take, and on an input that
@@ -203,10 +269,11 @@ def render_views(
     args = (vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat)
     if poses.device.type == "cpu":
         return render_views_plain(*args, h, w, diameter, min_depth, max_depth,
-                                  w_ambient, w_diffuse)
+                                  w_ambient, w_diffuse, table=table)
     if poses.device.type != "cuda":
         raise ValueError(f"unsupported device {poses.device}")
-    _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses)
+    _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses,
+                texture_dim=2 if table is not None else 3)
     cuda_build.refuse_grad(*args, what="render_views")
     if (clip_mat.device != poses.device or clip_mat.dtype != torch.float32
             or clip_mat.shape != poses.shape):
@@ -214,9 +281,14 @@ def render_views(
     n = poses.shape[0]
     if not (1 <= n <= 65535 and h >= 1 and w >= 1):
         raise ValueError(f"render kernel: bad shape n={n} h={h} w={w}")
-    verts = torch.empty((n, vertices.shape[0], 8), dtype=torch.float32, device=poses.device)
-    out = _launch(vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
-                  verts, None, h, w, diameter, min_depth, max_depth, w_ambient, w_diffuse)
+    if table is not None:
+        out = _launch_table(vertices, normals, texcoords, faces, face_valid, texture, poses,
+                            clip_mat, table, diameter, h, w, min_depth, max_depth, w_ambient,
+                            w_diffuse)
+    else:
+        verts = torch.empty((n, vertices.shape[0], 8), dtype=torch.float32, device=poses.device)
+        out = _launch(vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
+                      verts, None, h, w, diameter, min_depth, max_depth, w_ambient, w_diffuse)
     render_views.launches += 1
     return out
 
@@ -266,6 +338,36 @@ def _launch(vertices, normals, texcoords, faces, face_valid, texture, poses, cli
             None if coeffs is None else coeffs.data_ptr(), out.data_ptr(),
             n, faces.shape[0], v, h, w, texture.shape[0], texture.shape[1],
             diameter / 2.0, min_depth, max_depth, w_ambient, w_diffuse, int(transform), stream,
+        )
+    cuda_build.check(err, "render_views")
+    return out
+
+
+def _launch_table(vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
+                  table: ViewTable, diameters, h, w, min_depth, max_depth, w_ambient,
+                  w_diffuse) -> torch.Tensor:
+    """One call into csrc/render.cu's table entry: the vertex kernel over each
+    view's own vertices, then the render kernel. Returns (N, h, w, 6)."""
+    n = poses.shape[0]
+    for name, t, dtype, shape in (("table rows", table.rows, torch.int32, (n, len(TABLE_COLS))),
+                                  ("diameters", diameters, torch.float32, (n,))):
+        if (not isinstance(t, torch.Tensor) or t.device != poses.device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"render kernel: {name} must be contiguous {dtype} {shape} "
+                             f"on {poses.device}")
+    inputs = [t.contiguous() for t in (vertices, normals, texcoords, faces, face_valid, texture,
+                                       poses, clip_mat)]
+    if inputs[2].data_ptr() % 16:
+        raise ValueError("render kernel: texcoords must be 16-byte aligned")
+    verts = torch.empty((table.scratch_vertices, 8), dtype=torch.float32, device=poses.device)
+    out = torch.empty((n, h, w, 6), dtype=torch.float32, device=poses.device)
+    fn = _library().fp_render_views_table
+    with torch.cuda.device(poses.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in inputs), table.rows.data_ptr(), diameters.data_ptr(),
+            verts.data_ptr(), out.data_ptr(), n, table.vertex_max, h, w, min_depth, max_depth,
+            w_ambient, w_diffuse, stream,
         )
     cuda_build.check(err, "render_views")
     return out

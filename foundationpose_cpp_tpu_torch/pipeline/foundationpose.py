@@ -37,6 +37,8 @@ device pose out, nothing read back.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -47,13 +49,17 @@ from foundationpose_cpp_tpu_torch.meshio.mesh_loader import MeshAsset
 from foundationpose_cpp_tpu_torch.models import convert_jax, networks
 from foundationpose_cpp_tpu_torch.ops import depth as depth_ops
 from foundationpose_cpp_tpu_torch.pipeline.programs import Program, stage
-from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants, render_and_transform
+from foundationpose_cpp_tpu_torch.pipeline.renderer import (
+    MeshConstants,
+    MeshSet,
+    render_and_transform,
+)
 from foundationpose_cpp_tpu_torch.utils import profiling
 from foundationpose_cpp_tpu_torch.utils.device import resolve_device
 
 
 def refine_loop(
-    mesh: MeshConstants,
+    mesh: MeshConstants | MeshSet,
     refiner: networks.RefineNet,
     poses: torch.Tensor,
     rgb: torch.Tensor,
@@ -66,7 +72,8 @@ def refine_loop(
     """refine_itr x [render -> refiner -> compose delta]
     (foundationpose.cpp:200-213). image_hw: the real (h, w) of a frame
     padded to a size bucket, numbers or 0-d f32 tensors on the device
-    (None: the tensors' shape)."""
+    (None: the tensors' shape). A ``MeshSet`` refines each pose on its own
+    mesh."""
     for _ in range(refine_itr):
         stage("render_crop")
         render_in, transf_in = render_and_transform(
@@ -182,7 +189,7 @@ def register_step(
 
 
 def track_step(
-    mesh: MeshConstants,
+    mesh: MeshConstants | MeshSet,
     refiner: networks.RefineNet,
     rgb: torch.Tensor,
     depth: torch.Tensor,
@@ -193,7 +200,8 @@ def track_step(
     image_hw: tuple | None = None,
 ) -> torch.Tensor:
     """Track for a (N, 4, 4) batch of instances of one mesh (N=1: the
-    reference Track). image_hw: the real (h, w) of a padded frame."""
+    reference Track), or of a ``MeshSet``'s meshes, one a pose. image_hw:
+    the real (h, w) of a padded frame."""
     stage("xyz")
     xyz_map = depth_ops.depth_to_xyz(depth, K, cfg.min_depth)
     return refine_loop(mesh, refiner, poses, rgb, xyz_map, K, refine_itr, cfg, image_hw)
@@ -263,11 +271,14 @@ class FoundationPose:
     under the JAX package's keys, (kind, target, bucket or (h, w),
     refine_itr, [N,] bucketed), and the packed steps in ``_packed_cache``;
     on the card each is a CUDA graph captured on its first call, in one
-    memory pool the model's graphs share. The graphs read the nets'
-    parameters, the meshes and the model's constants by address:
-    ``load_state_dict`` on the nets is safe, replacing a net, a mesh or
-    ``_K`` after a capture is not. The programs keep static buffers, so a
-    model serves one calling thread at a time.
+    memory pool the model's graphs share. A ``track_batch`` over a sequence
+    of names (one a pose) is keyed by the tuple of names and renders with
+    its ``MeshSet``, built on the tuple's first call and kept in
+    ``_mesh_sets`` (``meshset_builds`` counts the builds). The graphs read
+    the nets' parameters, the meshes, the mesh sets and the model's
+    constants by address: ``load_state_dict`` on the nets is safe,
+    replacing a net, a mesh or ``_K`` after a capture is not. The programs
+    keep static buffers, so a model serves one calling thread at a time.
     """
 
     def __init__(
@@ -309,6 +320,8 @@ class FoundationPose:
         self._register_cache: dict[tuple, Program] = {}
         self._track_cache: dict[tuple, Program] = {}
         self._packed_cache: dict[tuple, Program] = {}
+        self._mesh_sets: dict[tuple, MeshSet] = {}
+        self.meshset_builds = 0
         self._graph_pool = (torch.cuda.graph_pool_handle() if self._device.type == "cuda"
                             else None)
 
@@ -441,10 +454,11 @@ class FoundationPose:
         # the public calls read its stage events back
         return self._program(program, key, (0, 1, 2, 3) if bucketed else (), staged=True)
 
-    def _track_program(self, key: tuple, mesh_name: str, refine_itr: int, bucketed: bool,
-                       single: bool) -> Program:
-        """Track of one (4, 4) pose (``single``) or of an (N, 4, 4) batch."""
-        mesh, refiner, K, cfg = self._meshes[mesh_name], self._refiner, self._K, self._cfg
+    def _track_program(self, key: tuple, mesh: MeshConstants | MeshSet, refine_itr: int,
+                       bucketed: bool, single: bool) -> Program:
+        """Track of one (4, 4) pose (``single``) or of an (N, 4, 4) batch, on
+        one mesh or on a ``MeshSet``'s, one a pose."""
+        refiner, K, cfg = self._refiner, self._K, self._cfg
 
         def program(rgb, depth, poses, hw=None):
             out = track_step(
@@ -478,20 +492,49 @@ class FoundationPose:
         profiling.step("program")
         return self._register_cache[key](*args)
 
+    def _mesh_set(self, names: tuple) -> MeshSet:
+        """The ``MeshSet`` of a tuple of names, built on its first call."""
+        mesh_set = self._mesh_sets.get(names)
+        if mesh_set is None:
+            mesh_set = self._mesh_sets[names] = MeshSet.build(names, self._meshes)
+            self.meshset_builds += 1
+            profiling.RECORDER.meshset_builds += 1
+        return mesh_set
+
+    def _check_names(self, names: tuple, n: int) -> None:
+        """A name a pose, each registered: ValueError otherwise."""
+        if not names:
+            raise ValueError("[FoundationPose] no target names")
+        if len(names) != n:
+            raise ValueError(f"[FoundationPose] {len(names)} target names for {n} poses")
+        unknown = sorted({str(name) for name in names if name not in self._meshes})
+        if unknown:
+            raise ValueError(f"[FoundationPose] unknown targets {unknown}; registered: "
+                             f"{sorted(self._meshes)}")
+
     @torch.inference_mode()
-    def _run_track(self, kind: str, rgb, depth, poses: np.ndarray, target_name, refine_itr):
+    def _run_track(self, kind: str, rgb, depth, poses: np.ndarray, target, refine_itr):
         """Shared Track plumbing: ``kind`` "track" for one (4, 4) pose,
-        "track_batch" for (N, 4, 4) (its key holds N)."""
+        "track_batch" for (N, 4, 4) (its key holds N); ``target`` a name, or
+        for "track_batch" a tuple of names, one a pose (its key holds it)."""
         with profiling.call(kind):
             profiling.step("check")
-            self._check_inputs(rgb, depth, None, target_name)
+            single_mesh = isinstance(target, str)
+            if not single_mesh:
+                self._check_names(target, int(poses.shape[0]))
+            self._check_inputs(rgb, depth, None, target if single_mesh else target[0])
             h, w = rgb.shape[:2]
             bucket = self._bucket_for(h, w)
             n = () if kind == "track" else (int(poses.shape[0]),)
-            key = (kind, target_name, bucket or (h, w), int(refine_itr), *n, bucket is not None)
+            key = (kind, target, bucket or (h, w), int(refine_itr), *n, bucket is not None)
+            if single_mesh:
+                mesh = self._meshes[target]
+            else:
+                profiling.step("meshset")
+                mesh = self._mesh_set(target)
             if key not in self._track_cache:
                 self._track_cache[key] = self._track_program(
-                    key, target_name, int(refine_itr), bucket is not None, kind == "track")
+                    key, mesh, int(refine_itr), bucket is not None, kind == "track")
             profiling.step("upload")
             frame = self._frame_args(rgb, depth)
             pose = self._upload(poses)
@@ -540,14 +583,25 @@ class FoundationPose:
         rgb: np.ndarray,
         depth: np.ndarray,
         hyp_poses: np.ndarray,
-        target_name: str,
+        target_name: str | Sequence[str],
         refine_itr: int = 1,
     ) -> np.ndarray:
-        """Track a (N, 4, 4) batch of instances of one mesh in one frame
-        (an extension over the reference, which tracks one per call): one
-        program for each N."""
-        return self._run_track("track_batch", rgb, depth, np.asarray(hyp_poses, np.float32),
-                               target_name, refine_itr)
+        """Track a (N, 4, 4) batch in one frame (an extension over the
+        reference, which tracks one per call): N instances of the mesh
+        ``target_name``, one program for each N; or, with a sequence of N
+        names, pose i on mesh ``target_name[i]``, one program for each
+        tuple of names, which renders all N views in one launch of the
+        render kernel a refinement. Distinct objects are independent in
+        Track, so each pose is refined on its own mesh and diameter; it
+        equals a call on its mesh alone up to the rounding of the crop
+        window's bounds, which may fall a pixel apart between batches of
+        different sizes (as Track and a one-mesh track_batch may). Raises
+        ValueError, before any upload, on an unknown name or on a count of
+        names other than N."""
+        poses = np.asarray(hyp_poses, np.float32)
+        if not isinstance(target_name, str):
+            target_name = tuple(target_name)
+        return self._run_track("track_batch", rgb, depth, poses, target_name, refine_itr)
 
     def track(
         self,

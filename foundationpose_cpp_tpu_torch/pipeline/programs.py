@@ -32,7 +32,8 @@ Launch counters: the kernels' wrappers count their launches in Python
 records each counter's increase during its capture, takes it back (the
 capture launched nothing) and adds it on every replay, so a counter counts
 the kernel launches the card made: one call's worth on the first call (the
-run before the capture) and on each replay.
+run before the capture) and on each replay. A recorded public call
+(``utils.profiling``) also keeps the launches its programs' replays made.
 
 Stage events: the function marks its stages with ``stage(name)``. During
 the capture of a ``staged`` Program each mark records a timing event into
@@ -272,6 +273,8 @@ class Program:
         self.replays += 1
         profiling.RECORDER.replays += 1
         _set_counts(c + d for c, d in zip(launch_counts(), self._delta))
+        if profiling.counting():
+            profiling.count_launches(self.launches_per_call)
         if self._marks:
             profiling.pending_stages(self)
         with profiling.span("clone"):

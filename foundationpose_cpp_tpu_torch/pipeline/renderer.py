@@ -74,8 +74,62 @@ class MeshConstants:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshSet:
+    """N views' meshes, one a view, as one launch of the render kernel takes
+    them: the distinct ``MeshConstants`` concatenated (each keeps its
+    ``FACE_PAD`` padding; faces index their own mesh's vertices, texels are
+    flattened to (texels, 3)), ``table`` the row per view that selects its
+    mesh (``ops.render.ViewTable``), ``diameter`` the (N,) f32 diameters
+    on the device, which ``render_and_transform`` and
+    ``transforms.apply_refine_delta`` take where a mesh has a number. Built
+    once per tuple of names (``FoundationPose``) and read by address by the
+    graphs that captured it.
+    """
+
+    names: tuple
+    vertices: torch.Tensor  # (sum V, 3)
+    normals: torch.Tensor  # (sum V, 3)
+    texcoords: torch.Tensor  # (sum V, 2)
+    faces: torch.Tensor  # (sum Fp, 3) int32, local to each mesh
+    face_valid: torch.Tensor  # (sum Fp,) bool
+    texture: torch.Tensor  # (sum Th * Tw, 3) f32
+    diameter: torch.Tensor  # (N,) f32
+    table: render.ViewTable
+
+    @staticmethod
+    def build(names, meshes: dict[str, MeshConstants]) -> "MeshSet":
+        """The set of ``names`` (one a view) out of ``meshes``; the
+        distinct meshes are concatenated in the order they first appear."""
+        distinct = list(dict.fromkeys(names))
+        spans, v, f, t = {}, 0, 0, 0
+        for name in distinct:
+            m = meshes[name]
+            th, tw = m.texture.shape[:2]
+            spans[name] = (v, m.vertices.shape[0], f, m.faces.shape[0], t, th, tw)
+            v, f, t = v + m.vertices.shape[0], f + m.faces.shape[0], t + th * tw
+        device = meshes[distinct[0]].vertices.device
+
+        def cat(field, shape=None):
+            parts = [getattr(meshes[n], field) for n in distinct]
+            return torch.cat([p.reshape(shape) if shape else p for p in parts]).contiguous()
+
+        return MeshSet(
+            names=tuple(names),
+            vertices=cat("vertices"),
+            normals=cat("normals"),
+            texcoords=cat("texcoords"),
+            faces=cat("faces"),
+            face_valid=cat("face_valid"),
+            texture=cat("texture", (-1, 3)),
+            diameter=torch.tensor([meshes[n].diameter for n in names], dtype=torch.float32,
+                                  device=device),
+            table=render.ViewTable.build([spans[n] for n in names], device),
+        )
+
+
 def render_branch(
-    mesh: MeshConstants,
+    mesh: MeshConstants | MeshSet,
     poses: torch.Tensor,
     clip_mat: torch.Tensor,
     ch: int,
@@ -84,16 +138,18 @@ def render_branch(
 ) -> torch.Tensor:
     """Render branch only: N poses through clip matrices -> (N, ch, cw, 6):
     raster, barycentric attributes, texture, Lambert shade, v-flip, xyz
-    threshold/diameter-downscale."""
+    threshold/diameter-downscale. A ``MeshSet`` renders each pose on its own
+    mesh, in one launch."""
     return render.render_views(
         mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.face_valid,
         mesh.texture, poses, clip_mat, ch, cw, mesh.diameter, cfg.min_depth,
         cfg.max_depth, cfg.w_ambient, cfg.w_diffuse,
+        table=mesh.table if isinstance(mesh, MeshSet) else None,
     )
 
 
 def render_and_transform(
-    mesh: MeshConstants,
+    mesh: MeshConstants | MeshSet,
     poses: torch.Tensor,
     rgb: torch.Tensor,
     xyz_map: torch.Tensor,
@@ -110,6 +166,7 @@ def render_and_transform(
     bucket (None: their shape), as numbers or as 0-d f32 tensors on the
     device. The zero padding reads as the warps' zero border, so only the
     clip matrix needs the real extent.
+    A ``MeshSet`` gives each pose its own mesh and diameter.
     Returns (render_input, transf_input), each (N, crop_h, crop_w, 6) f32.
     """
     ch, cw = cfg.crop_window_h, cfg.crop_window_w

@@ -19,7 +19,11 @@ work is done. So the port records, in ``RECORDER``:
 - the bytes each call copies, by kind: ``upload_pageable`` and
   ``upload_pinned`` (host to device), ``load`` (into a graph's static
   buffers), ``clone`` (of a graph's outputs) and ``readback`` (device to
-  host); and the process's graph captures and replays.
+  host); the launches of each counted kernel wrapper a call's graph
+  replays made (``programs.COUNTED``: ``render_views`` is K2's); and the process's
+  graph captures and replays and the models' mesh-set builds
+  (``FoundationPose.track_batch`` over distinct meshes; one after the
+  warm-up is a new tuple of names met while serving).
 
 The recorder is off unless ``tracing()`` is active or a profiler session
 runs; off, a public call costs a few attribute checks (about a
@@ -70,7 +74,8 @@ class Call:
     end ns, index of the enclosing span in ``spans`` or -1 for the root),
     times by ``time.perf_counter_ns``; the device milliseconds of its
     graph's stages in the graph's order, (name, ms) with a name that may
-    repeat; the bytes of its copies by kind. Once the call ends, its spans
+    repeat; the bytes of its copies by kind; the launches its graph replays
+    made, by counted wrapper. Once the call ends, its spans
     and stages are tuples of numbers and strings, which Python's collector
     stops tracking: a full buffer adds little to its collections."""
 
@@ -78,6 +83,7 @@ class Call:
     spans: list | tuple = dataclasses.field(default_factory=list)
     stages: list | tuple = dataclasses.field(default_factory=list)
     bytes: dict = dataclasses.field(default_factory=dict)
+    launches: dict = dataclasses.field(default_factory=dict)
     pending: Any = None  # the Program whose stage events this call has not read yet
 
 
@@ -154,9 +160,10 @@ class Recorder:
     the latest stretch in which it was on, the newest ``MAX_CALLS``.
 
     ``captures`` and ``replays`` count every program's captures and
-    replays in the process, on or off; the byte counters count only the
-    copies of recorded calls, in each call and in ``bytes`` (the stretch's
-    totals).
+    replays in the process, on or off, and ``meshset_builds`` every model's
+    mesh-set builds; the byte counters count only the copies of recorded
+    calls, in each call and in ``bytes`` (the stretch's totals), and the
+    launch counters only their launches.
     """
 
     def __init__(self) -> None:
@@ -164,6 +171,7 @@ class Recorder:
         self.calls: collections.deque = collections.deque(maxlen=MAX_CALLS)
         self.captures = 0
         self.replays = 0
+        self.meshset_builds = 0
         self.bytes: dict = {}
         self._call: Call | None = None
         self._open: list[int] = []
@@ -185,12 +193,13 @@ class Recorder:
         the ``mean_ms`` and ``self_ms`` (the duration less its children's)
         of one span; ``stages``, by name, the device ms a call (a stage that
         runs twice in a graph summed), over the calls whose stages were
-        read; ``bytes``, by copy kind, the bytes a call; and the process's
-        ``captures`` and ``replays``."""
+        read; ``bytes``, by copy kind, the bytes a call; ``launches``, by
+        counted wrapper, the launches a call; and the process's
+        ``captures``, ``replays`` and ``meshset_builds``."""
         calls = list(self.calls)
         count, total, own = collections.Counter(), collections.Counter(), collections.Counter()
         stages, staged = collections.Counter(), 0
-        copied = collections.Counter()
+        copied, launched = collections.Counter(), collections.Counter()
         for call in calls:
             children = [0] * len(call.spans)
             for _, _, start, end, parent in call.spans:
@@ -204,14 +213,17 @@ class Recorder:
                 stages[name] += ms
             staged += bool(call.stages)
             copied.update(call.bytes)  # a Counter adds what a dict would replace
+            launched.update(call.launches)
         return {
             "calls": len(calls),
             "spans": {n: {"count": c, "mean_ms": total[n] * 1e-6 / c, "self_ms": own[n] * 1e-6 / c}
                       for n, c in count.items()},
             "stages": {n: ms / staged for n, ms in stages.items()},
             "bytes": {k: b / len(calls) for k, b in copied.items()} if calls else {},
+            "launches": {k: n / len(calls) for k, n in launched.items()} if calls else {},
             "captures": self.captures,
             "replays": self.replays,
+            "meshset_builds": self.meshset_builds,
         }
 
 
@@ -258,6 +270,15 @@ def count_bytes(kind: str, nbytes: int) -> None:
     if call_ is not None and nbytes:
         call_.bytes[kind] = call_.bytes.get(kind, 0) + nbytes
         RECORDER.bytes[kind] = RECORDER.bytes.get(kind, 0) + nbytes
+
+
+def count_launches(launches: dict) -> None:
+    """Adds a graph replay's launches, by counted wrapper, to the open
+    recorded call; nothing outside a recorded call."""
+    call_ = RECORDER._call
+    if call_ is not None:
+        for name, n in launches.items():
+            call_.launches[name] = call_.launches.get(name, 0) + n
 
 
 def count_upload(src: torch.Tensor, dst: torch.Tensor) -> None:
