@@ -5,7 +5,9 @@
 
 Builds the port's CUDA kernels from ``foundationpose_cpp_tpu_torch/csrc``
 (one nvcc per source, all at once), holds each against its plain PyTorch
-version at the main paths' shapes (the probe kernel at its tool's two) and
+version at the main paths' shapes (the probe kernel at its tool's two; the
+observed-crop kernel at Register's 252 views, Track's 1 and the mixed
+cell's 8, each with its own diameter) and
 times both (with the one PyTorch call
 that computes the same function, where there is one); the render and raster
 kernels also run on plane coefficients handed in from the plain version,
@@ -460,9 +462,9 @@ def surface_points(np, asset, n=2000, seed=0):
 def stage_breakdown(torch, model, rgb, depth, mask) -> None:
     """Device time of each Register stage at 252 hypotheses, by CUDA events,
     and within render_and_transform the shares of the crop and clip matrices,
-    of the render kernel and of the two crop warps with the threshold."""
+    of the render kernel and of the observed-crop kernel."""
     from foundationpose_cpp_tpu_torch.geometry import transforms
-    from foundationpose_cpp_tpu_torch.ops import pointcloud, warp
+    from foundationpose_cpp_tpu_torch.ops import crop
     from foundationpose_cpp_tpu_torch.pipeline import foundationpose as fpp
     from foundationpose_cpp_tpu_torch.pipeline.renderer import render_and_transform, render_branch
 
@@ -488,16 +490,14 @@ def stage_breakdown(torch, model, rgb, depth, mask) -> None:
                                                     cfg.znear, cfg.zfar)
 
         def observed(tfs):
-            xyz = warp.warp_crop_nearest_f32(xyz_map, tfs, ch, cw)
-            xyz = pointcloud.threshold_and_downscale_pointcloud(
-                xyz, poses, mesh.diameter / 2.0, cfg.min_depth, cfg.max_depth)
-            return pointcloud.concat_channels(warp.warp_crop_linear_u8(rgb_t, tfs, ch, cw), xyz)
+            return crop.crop_observed(rgb_t, xyz_map, tfs, poses, mesh.diameter / 2.0, ch, cw,
+                                      cfg.min_depth, cfg.max_depth)
 
         tfs, clip_mat = matrices()
         inside = {"crop_and_clip_matrices": cuda_ms(torch, matrices, 5),
                   "render_views": cuda_ms(torch, lambda: render_branch(
                       mesh, poses, clip_mat, ch, cw, cfg), 5),
-                  "warps_and_threshold": cuda_ms(torch, lambda: observed(tfs), 5)}
+                  "crop_observed": cuda_ms(torch, lambda: observed(tfs), 5)}
     log("stages_252_ms: " + " ".join(f"{k}={v:.3f}" for k, v in times.items()))
     log("render_and_transform_252_ms: " + " ".join(f"{k}={v:.3f}" for k, v in inside.items()))
 
@@ -520,6 +520,7 @@ def reset_counts(kernels) -> None:
 
 def run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled, K):
     """Register + Track on the card at full width; returns launches and times."""
+    from foundationpose_cpp_tpu_torch.ops import crop
     from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
 
     h, w = 480, 640
@@ -543,22 +544,27 @@ def run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled,
 
     attention.mha_packed_qkv.launches = 0
     render.render_views.launches = 0
+    crop.crop_observed.launches = 0
     t0 = time.perf_counter()
     pose = model.register(rgb, depth, mask, "house")
     reg_ms = (time.perf_counter() - t0) * 1e3
-    counts = (render.render_views.launches, attention.mha_packed_qkv.launches)
-    if counts != (2, 3):
-        raise AssertionError(f"Register launched (render, attention) = {counts}, want (2, 3)")
+    counts = (render.render_views.launches, attention.mha_packed_qkv.launches,
+              crop.crop_observed.launches)
+    if counts != (2, 3, 2):
+        raise AssertionError(f"Register launched (render, attention, crop) = {counts}, "
+                             "want (2, 3, 2)")
     errs, track_ms = [], []
     for i, (rgb_i, depth_i, _) in enumerate(frames):
         t0 = time.perf_counter()
         pose_i = model.track(rgb_i, depth_i, pose if i == 0 else errs[-1][2], "house")
         track_ms.append((time.perf_counter() - t0) * 1e3)
         errs.append((rot_err_deg(np, pose_i, gts[i]), float(np.linalg.norm(pose_i[:3, 3] - gts[i][:3, 3])), pose_i))
-    counts = (render.render_views.launches, attention.mha_packed_qkv.launches)
+    counts = (render.render_views.launches, attention.mha_packed_qkv.launches,
+              crop.crop_observed.launches)
     n = len(frames)
-    if counts != (2 + n, 3 + n):
-        raise AssertionError(f"Register + {n} Track launched {counts}, want {(2 + n, 3 + n)}")
+    if counts != (2 + n, 3 + n, 2 + n):
+        raise AssertionError(f"Register + {n} Track launched {counts}, "
+                             f"want {(2 + n, 3 + n, 2 + n)}")
 
     if not (pose.shape == (4, 4) and np.isfinite(pose).all()):
         raise AssertionError(f"Register pose is not a finite 4x4: {pose}")
@@ -593,8 +599,8 @@ def run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled,
     log(f"register_ms={reg_med:.2f} (first timed {reg_ms:.2f}) register_fps={1e3 / reg_med:.2f} "
         f"track_ms={trk_med:.2f} track_fps={1e3 / trk_med:.2f}")
     return dict(render_launches=counts[0], attention_launches=counts[1],
-                raster_launches=raster_launches, model=model, house=house, frames=frames,
-                gts=gts, pose=pose)
+                crop_launches=counts[2], raster_launches=raster_launches, model=model,
+                house=house, frames=frames, gts=gts, pose=pose)
 
 
 def run_dataset_full_width(torch, np, tproc, syn, kernels, K, tmp):
@@ -2233,6 +2239,59 @@ def check_probe_grid(torch, probe_grid):
     return rows
 
 
+def check_crop(torch, np, transforms, crop):
+    """The observed-crop kernel (K6) at Register's shape (252 views),
+    Track's (1 view) and the mixed cell's (8 views, a diameter each),
+    160x160 crops of a 480x640 frame on the rotation grid at 0.6 m, against
+    its plain version bit for bit (NaN equal); the kernel's time (and the
+    time queued behind other work), the plain version's, and the bound: the
+    output's bytes at 3.35 TB/s (the frame stays in L2). At N=252 and N=1
+    the downscale is a number, half a 0.1366 m diameter: not a power of two,
+    so a reciprocal rounded otherwise than PyTorch's shows. At N=8 it is the
+    (N,) f32 half-diameters of LM-O's eight objects, as a MeshSet gives them
+    (the kernel's per-view branch)."""
+    from foundationpose_cpp_tpu_torch.geometry import icosphere
+
+    h, w, ch, cw, diameter = 480, 640, 160, 160, 0.1366
+    lmo8_mm = (102.1, 201.4, 154.5, 261.5, 109.0, 176.4, 164.6, 148.2)
+    K = torch.tensor([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1]]).cuda()
+    gen = np.random.default_rng(0)
+    rgb = torch.from_numpy(gen.integers(0, 256, (h, w, 3), dtype=np.uint8)).cuda()
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    depth = 0.55 + 0.1 * np.hypot(xs - 320, ys - 240) / 400 + 0.01 * gen.random((h, w))
+    depth[gen.random((h, w)) < 0.05] = 0.0
+    xyz = ((torch.from_numpy(np.stack([xs, ys, np.ones_like(xs)], -1)).cuda()
+            @ torch.linalg.inv(K).T) * torch.from_numpy(depth[..., None].astype(np.float32)).cuda())
+    grid = torch.from_numpy(icosphere.make_rotation_grid()).cuda()
+    rows = []
+    for n in (252, 1, 8):
+        poses = grid[:n].clone()
+        poses[:, :3, 3] = torch.tensor([0.01, -0.02, 0.6]).cuda()
+        # a MeshSet's (N,) f32 diameters, halved as render_and_transform does
+        diam = (torch.tensor(lmo8_mm, dtype=torch.float32).cuda() / 1000.0 if n == 8
+                else diameter)
+        tfs = transforms.compute_crop_window_tf(poses, K, (ch, cw), 1.2, diam)
+        args = (rgb, xyz, tfs, poses, diam / 2.0, ch, cw, 0.001, 4.0)
+        got = crop.crop_observed(*args)
+        want = crop.crop_observed_plain(*args)
+        torch.cuda.synchronize()
+        off = int((~((got == want) | (got.isnan() & want.isnan()))).sum())
+        err = float((got - want).abs().nan_to_num(0.0).max())
+        if off:
+            raise AssertionError(f"crop_observed N={n}: {off} values off its plain version "
+                                 f"(max |d| {err})")
+        k_ms = cuda_ms(torch, lambda: crop.crop_observed(*args), 20)
+        q_ms = cuda_ms_queued(torch, lambda: crop.crop_observed(*args), 20)
+        p_ms = cuda_ms(torch, lambda: crop.crop_observed_plain(*args), 5)
+        b_ms, b_by = bound(nbytes(got), 0.0, F32_FLOPS)
+        log(f"crop_observed N={n} {ch}x{cw} of {h}x{w}: values off {off} (bit for bit) "
+            f"kernel_ms={k_ms:.4f} queued_ms={q_ms:.4f} plain_ms={p_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}; {nbytes(got)} bytes written)")
+        rows.append(dict(name=f"N={n}", err=err, ms=k_ms, queued_ms=q_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
 def run_profile(torch, np, attention, render, probe_grid):
     """The perf harnesses at the published widths (N=252, crop 160): the
     probe tool as it is, then profile_nets, bench_stem, bench_attn (both
@@ -2316,7 +2375,7 @@ def main() -> int:
         from foundationpose_cpp_tpu_torch.geometry import transforms
         from foundationpose_cpp_tpu_torch.meshio import procedural as tproc
         from foundationpose_cpp_tpu_torch.ops import (
-            attention, cuda_build, probe_grid, rasterize_tiled, render,
+            attention, crop, cuda_build, probe_grid, rasterize_tiled, render,
         )
         from foundationpose_cpp_tpu_torch.tools import raster_region_sweep as sweep
         from foundationpose_cpp_tpu_torch.utils import profiling
@@ -2353,6 +2412,7 @@ def main() -> int:
     render_rows = phase("K2", check_render, torch, transforms, render, sweep)
     raster_rows = phase("K4", check_rasterize, torch, transforms, rasterize_tiled, render, sweep)
     probe_rows = phase("K5", check_probe_grid, torch, probe_grid)
+    crop_rows = phase("K6", check_crop, torch, np, transforms, crop)
     launches = phase("main path", run_main_path, torch, np, fp, tproc, syn, attention, render,
                      rasterize_tiled, K)
     # the serving paths around Track and Register, each with the counts of
@@ -2416,6 +2476,11 @@ def main() -> int:
              replaces="tools/probe_grid_overhead.py:62",
              launches=profile["launches"]["probe_grid"],
              max_abs_err=max(r["err"] for r in probe_rows), **row(probe_rows[0])),
+        dict(name="crop_observed", route="cuda",
+             source="foundationpose_cpp_tpu_torch/csrc/crop.cu",
+             replaces="none (the JAX package's gather warps, foundationpose_cpp_tpu/ops/warp.py)",
+             launches=launches["crop_launches"], max_abs_err=max(r["err"] for r in crop_rows),
+             **row(dict(crop_rows[0], library_ms=None))),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,7 +41,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("attention", "render", "rasterize", "probe_grid")
+KERNEL_SOURCES = ("attention", "render", "rasterize", "probe_grid", "crop")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -12,9 +12,10 @@ cvcuda does, before the 1/255 ConvertTo), INTERP_NEAREST for xyz, and
 BORDER_CONSTANT 0 outside. ``torch.round`` and ``jnp.round`` both round half
 to even, so both warps agree bit for bit with the JAX ones.
 
-Both warps take one image shared by the N poses (Register, Track) or a batch
-of N images, pose i sampling image i (the trainer, where every hypothesis has
-its own observed frame; the JAX trainer vmaps the one-image warp).
+Both warps take one image shared by the N poses (Register, Track: there they
+are the plain version of ``ops/crop.py``'s kernel) or a batch of N images,
+pose i sampling image i (the trainer, where every hypothesis has its own
+observed frame; the JAX trainer vmaps the one-image warp).
 """
 
 from __future__ import annotations

@@ -235,14 +235,16 @@ def unpack_frame(
     (rgb (h, w, 3) uint8, depth (h, w) f32 meters), on packed's device.
 
     An rgb_half colour plane is upsampled (``upsample_rgb_half``) and
-    truncated to uint8, as the JAX package's CPU warp truncates it
-    (``warp_crop_linear_u8``'s ``astype(uint32)``). u16mm depth is
+    truncated to contiguous uint8 (as the crops take it), as the JAX
+    package's CPU warp truncates it (``warp_crop_linear_u8``'s
+    ``astype(uint32)``). u16mm depth is
     ``mm * 1e-3`` in f32, as in the JAX package.
     """
     h, w = frame_hw
     rgb_n = (h // 2) * (w // 2) * 3 if rgb_half else h * w * 3
     if rgb_half:
-        rgb = upsample_rgb_half(packed[:rgb_n].reshape(h // 2, w // 2, 3)).to(torch.uint8)
+        rgb = upsample_rgb_half(packed[:rgb_n].reshape(h // 2, w // 2, 3)).to(
+            torch.uint8, memory_format=torch.contiguous_format)
     else:
         rgb = packed[:rgb_n].reshape(h, w, 3)
     raw = packed[rgb_n:]

@@ -65,7 +65,7 @@ from typing import Any, Callable, Iterable
 import torch
 
 from foundationpose_cpp_tpu_torch.models import networks
-from foundationpose_cpp_tpu_torch.ops import attention, probe_grid, rasterize_tiled, render
+from foundationpose_cpp_tpu_torch.ops import attention, crop, probe_grid, rasterize_tiled, render
 from foundationpose_cpp_tpu_torch.utils import profiling
 
 # every wrapper that counts the launches of its kernel, and the nets'
@@ -77,6 +77,7 @@ COUNTED = (
     rasterize_tiled.rasterize_tiled,
     probe_grid.probe_grid,
     networks.padded_stem,
+    crop.crop_observed,
 )
 
 

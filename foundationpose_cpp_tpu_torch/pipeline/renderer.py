@@ -4,8 +4,9 @@ tensor functions.
 Counterpart of ``foundationpose_cpp_tpu.pipeline.renderer``. Pipeline order
 matches the reference's NvdiffrastRender (foundationpose_render.cpp:611-683)
 + RenderProcess (:685-729) + TransfProcess (:731-812): the render branch is
-the CUDA render kernel (``ops/render.py``); the observed branch is the two
-crop warps and the pointcloud threshold.
+the CUDA render kernel (``ops/render.py``); the observed branch is the crop
+kernel (``ops/crop.py``): the two crop warps, the pointcloud threshold and
+the concat in one pass.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
 from foundationpose_cpp_tpu_torch.geometry import transforms
 from foundationpose_cpp_tpu_torch.meshio.mesh_loader import MeshAsset
-from foundationpose_cpp_tpu_torch.ops import pointcloud, render, warp
+from foundationpose_cpp_tpu_torch.ops import crop, render
 from foundationpose_cpp_tpu_torch.utils.device import resolve_device
 
 
@@ -176,9 +177,7 @@ def render_and_transform(
     clip_mat = transforms.pose_clip_matrix(poses, bbox2d, K, h, w, cfg.znear, cfg.zfar)
     render_input = render_branch(mesh, poses, clip_mat, ch, cw, cfg)
 
-    rgb_crop = warp.warp_crop_linear_u8(rgb, tfs, ch, cw)
-    xyz_crop = warp.warp_crop_nearest_f32(xyz_map, tfs, ch, cw)
-    xyz_crop = pointcloud.threshold_and_downscale_pointcloud(
-        xyz_crop, poses, mesh.diameter / 2.0, cfg.min_depth, cfg.max_depth
+    transf_input = crop.crop_observed(
+        rgb, xyz_map, tfs, poses, mesh.diameter / 2.0, ch, cw, cfg.min_depth, cfg.max_depth
     )
-    return render_input, pointcloud.concat_channels(rgb_crop, xyz_crop)
+    return render_input, transf_input

@@ -622,7 +622,8 @@ def test_track_graph_chain_equals_eager_chain(card):
     program = model._track_cache[("track", "house", (480, 640), 1, False)]
     assert program.captured and program.launches_per_call == {"mha_packed_qkv": 1,
                                                               "render_views": 1,
-                                                              "padded_stem": 1}
+                                                              "padded_stem": 1,
+                                                              "crop_observed": 1}
     frame = [torch.from_numpy(a).to(card) for a in (rgb, depth)]
     pose, eager = torch.from_numpy(gt).to(card), torch.from_numpy(gt).to(card)
     before = (render.render_views.launches, attention.mha_packed_qkv.launches)
@@ -650,7 +651,8 @@ def test_register_graph_equals_eager(card):
     program = model._register_cache[("register", "house", (480, 640), 1, False)]
     assert program.captured and program.launches_per_call == {"mha_packed_qkv": 3,
                                                               "render_views": 2,
-                                                              "padded_stem": 2}
+                                                              "padded_stem": 2,
+                                                              "crop_observed": 2}
     assert first[1].data_ptr() != second[1].data_ptr()
     frame = [torch.from_numpy(a).to(card) for a in (rgb, depth, mask)]
     with torch.inference_mode():
