@@ -305,7 +305,7 @@ def check_render(torch, transforms, render, sweep, cases=None):
     rows = []
     for name, n, crop, asset in cases or [(*c, None) for c in sweep.RENDER_CASES[:3]]:
         case = sweep.render_case(name, n, crop, asset=asset)
-        mesh_args, poses, clip_mat, tail = case[:6], case[6], case[7], case[8:]
+        mesh_args, poses, clip_mat, tail = case[:5], case[5], case[6], case[7:]
         sl = slice(0, min(n, 16))
         got = render.render_views(*case)
         want = render.render_views_plain(*mesh_args, poses[sl], clip_mat[sl], *tail)
@@ -316,8 +316,8 @@ def check_render(torch, transforms, render, sweep, cases=None):
             raise AssertionError(f"render kernel disagrees on {name} N={n}: {bad:.4%} pixels "
                                  f"off, fg {fg:.2f}")
         verts = render.vertex_prepass_plain(case[0], case[1], poses, clip_mat)
-        coeffs, bbox, _ = render.render_prepass(*case[:5], poses, clip_mat, crop, crop)
-        launch_args = (verts, case[2], case[3], case[4], case[5], poses, *tail)
+        coeffs, bbox, _ = render.render_prepass(*case[:4], poses, clip_mat, crop, crop)
+        launch_args = (verts, case[2], case[3], case[4], poses, *tail)
         exact = render.launch_render(*launch_args, coeffs=coeffs)
         bad_x, err_x = sweep.render_disagreement(exact[sl], want, RENDER_TOL)
         if bad_x != 0.0:
@@ -329,12 +329,11 @@ def check_render(torch, transforms, render, sweep, cases=None):
         p_ms = cuda_ms(torch, lambda: render.render_views_plain(*case), 1, warmup=0)
         clip = transforms.transform_points_homogeneous(clip_mat, case[0])
         done = render.face_pixel_tests(bbox)
-        needed = tests_needed(torch, ras, clip, case[3], case[4], crop, crop)
+        needed = tests_needed(torch, ras, clip, case[3], crop, crop)
         b_ms, b_by = bound(nbytes(*mesh_args, poses, clip_mat, got), needed * RENDER_TEST_FLOPS,
                            F32_FLOPS)
-        live = case[4][None, :].expand(n, -1)
-        empty = ((bbox[..., 1] < bbox[..., 0]) | (bbox[..., 3] < bbox[..., 2]))[live]
-        log(f"render {name} N={n} {crop}x{crop} {int(case[4].sum())} faces: pixels_off={bad:.4%} "
+        empty = (bbox[..., 1] < bbox[..., 0]) | (bbox[..., 3] < bbox[..., 2])
+        log(f"render {name} N={n} {crop}x{crop} {case[3].shape[0]} faces: pixels_off={bad:.4%} "
             f"max_abs_err={err:.3e}; on handed-in coefficients pixels_off={bad_x:.4%} "
             f"max_abs_err={err_x:.3e}; wrapper_ms={k_ms:.4f} (checks + 2 launches) "
             f"render_kernel_launch_ms={launch_ms:.4f} wrapper_ms_queued={q_ms:.4f} "
@@ -346,11 +345,10 @@ def check_render(torch, transforms, render, sweep, cases=None):
     return rows
 
 
-def tests_needed(torch, ras, clip, faces, face_valid, h: int, w: int) -> int:
+def tests_needed(torch, ras, clip, faces, h: int, w: int) -> int:
     """Face-pixel tests the data needs: each face that survives culling
     against the pixel centers inside its own projected bbox."""
     _, valid = ras.edge_coefficients(clip, faces)
-    valid = valid & face_valid[None, :]
     tri = clip[:, faces.long()]  # (N, F, 3, 4)
     ndc = tri[..., :2] / tri[..., 3:4]
     size = torch.tensor([w, h], dtype=torch.float32, device=clip.device)
@@ -373,11 +371,11 @@ def check_rasterize(torch, transforms, rasterize_tiled, render, sweep, cases=Non
 
     rows = []
     for name, n, h, w, asset in cases or [(*c, None) for c in sweep.RASTER_CASES]:
-        clip, faces, _, _, valid = sweep.raster_case(name, n, h, w, asset=asset)
-        got = rasterize_tiled.rasterize_tiled(clip, faces, h, w, face_valid=valid)
-        want = rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w, face_valid=valid)
-        coeffs, bbox = rasterize_tiled.rasterize_prepass(clip, faces, h, w, valid)
-        exact = rasterize_tiled.launch_rasterize(clip, faces, h, w, valid, coeffs=coeffs)
+        clip, faces, _, _ = sweep.raster_case(name, n, h, w, asset=asset)
+        got = rasterize_tiled.rasterize_tiled(clip, faces, h, w)
+        want = rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w)
+        coeffs, bbox = rasterize_tiled.rasterize_prepass(clip, faces, h, w)
+        exact = rasterize_tiled.launch_rasterize(clip, faces, h, w, coeffs=coeffs)
         torch.cuda.synchronize()
         share, err = sweep.raster_agreement(got, want)
         share_x, err_x = sweep.raster_agreement(exact, want)
@@ -392,17 +390,17 @@ def check_rasterize(torch, transforms, rasterize_tiled, render, sweep, cases=Non
                                  f"{name} N={n} {h}x{w}")
 
         def run():
-            return rasterize_tiled.rasterize_tiled(clip, faces, h, w, face_valid=valid)
+            return rasterize_tiled.rasterize_tiled(clip, faces, h, w)
 
         k_ms = cuda_ms(torch, run, 20)
         q_ms = cuda_ms_queued(torch, run, 20)
-        p_ms = cuda_ms(torch, lambda: rasterize_tiled.rasterize_tiled_plain(
-            clip, faces, h, w, face_valid=valid), 3)
+        p_ms = cuda_ms(torch, lambda: rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w), 3)
         done = render.face_pixel_tests(bbox)
-        needed = tests_needed(torch, ras, clip, faces, valid, h, w)
-        b_ms, b_by = bound(nbytes(clip, faces, valid, got), needed * RENDER_TEST_FLOPS, F32_FLOPS)
-        log(f"rasterize_tiled {name} N={n} {h}x{w} {int(valid.sum())} faces: wrapper_ms={k_ms:.4f} (checks + 1 launch) "
-            f"kernel_ms_queued={q_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
+        needed = tests_needed(torch, ras, clip, faces, h, w)
+        b_ms, b_by = bound(nbytes(clip, faces, got), needed * RENDER_TEST_FLOPS, F32_FLOPS)
+        log(f"rasterize_tiled {name} N={n} {h}x{w} {faces.shape[0]} faces: wrapper_ms={k_ms:.4f} "
+            f"(checks + 1 launch) kernel_ms_queued={q_ms:.4f} plain_ms={p_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}; "
             f"{needed} face-pixel tests needed, {done} done)")
         rows.append(dict(name=name, n=n, err=err, share=share, ms=k_ms, queued_ms=q_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
@@ -1171,7 +1169,7 @@ def run_mixed_meshes(torch, np, fp, syn, transforms, render, sweep, profiling, k
     tail = (crop, crop, mesh_set.diameter, cfg.min_depth, cfg.max_depth, cfg.w_ambient,
             cfg.w_diffuse)
     set_args = (mesh_set.vertices, mesh_set.normals, mesh_set.texcoords, mesh_set.faces,
-                mesh_set.face_valid, mesh_set.texture, poses, clip_mat)
+                mesh_set.texture, poses, clip_mat)
     reset_counts((render.render_views,))
     got = render.render_views(*set_args, *tail, table=mesh_set.table)
     want = render.render_views_plain(*set_args, *tail, table=mesh_set.table)
@@ -1198,10 +1196,10 @@ def run_mixed_meshes(torch, np, fp, syn, transforms, render, sweep, profiling, k
     for i, name in enumerate(names):
         m = meshes[name]
         clip = transforms.transform_points_homogeneous(clip_mat[i:i + 1], m.vertices)
-        needed += tests_needed(torch, ras, clip, m.faces, m.face_valid, crop, crop)
+        needed += tests_needed(torch, ras, clip, m.faces, crop, crop)
     b_ms, b_by = bound(nbytes(*set_args, mesh_set.table.rows, mesh_set.diameter, got),
                        needed * RENDER_TEST_FLOPS, F32_FLOPS)
-    log(f"render lmo8 table N={n} {crop}x{crop} {int(mesh_set.face_valid.sum())} faces in "
+    log(f"render lmo8 table N={n} {crop}x{crop} {mesh_set.faces.shape[0]} faces in "
         f"{n} meshes: pixels_off={bad:.4%} max_abs_err={err:.3e}; wrapper_ms={k_ms:.4f} "
         f"(checks + 2 launches) wrapper_ms_queued={q_ms:.4f} plain_ms={p_ms:.4f} "
         f"{n}_one_view_launches_ms_queued={each_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
@@ -1326,13 +1324,12 @@ def check_program(torch, np, profiling, label, program, args, calls, busy=False)
     replay under set_sync_debug_mode("error"), then ms a call graphed and
     eager (host clock, median of three windows of ``calls`` calls) and, with
     ``busy``, the card's kernel time a call and its share of that ms."""
-    from foundationpose_cpp_tpu_torch.pipeline import programs
+    from foundationpose_cpp_tpu_torch.ops import cuda_build
 
     def counted(fn):
-        before = programs.launch_counts()
+        before = cuda_build.launch_counts()
         out = fn()
-        return out, {f.__name__: a - b for f, a, b in
-                     zip(programs.COUNTED, programs.launch_counts(), before) if a - b}
+        return out, cuda_build.launches_since(before)
 
     with torch.inference_mode():
         if not program.captured:
@@ -1641,8 +1638,8 @@ def run_sharded(torch, np, fp, main, multi, K, tmp):
       config 5, 4 a rank, 5 chained steps, each instance under the
       multi-object gates, against ``track_step`` of the 8.
 
-    Each rank launches K2 twice and K1 three times a Register and issues
-    three all-gathers and nothing else. Ranks sharing one card measure the
+    Each rank launches K2, K6 and the padded stem twice and K1 three times a
+    Register and issues three all-gathers and nothing else. Ranks sharing one card measure the
     split's correctness and overhead, not scaling."""
     import dataclasses
 
@@ -1690,8 +1687,8 @@ def run_sharded(torch, np, fp, main, multi, K, tmp):
                                   hyp_valid=valid), n, tmp / f"w{n}", timeout=300)
         wall = time.perf_counter() - t0
         backend = "nccl" if n <= torch.cuda.device_count() else "gloo"
-        check_ranks(res, backend, {"render_views": 2, "mha_packed_qkv": 3}, 3, f"sharded W={n}",
-                    graphed=n == 1)
+        check_ranks(res, backend, {"render_views": 2, "mha_packed_qkv": 3, "padded_stem": 2,
+                                   "crop_observed": 2}, 3, f"sharded W={n}", graphed=n == 1)
         a, (task,) = res[0]["arrays"], res[0]["meta"]["tasks"]
         for r in res[1:]:
             if not all(np.array_equal(v, a[k]) for k, v in r["arrays"].items()
@@ -1769,7 +1766,8 @@ def run_sharded(torch, np, fp, main, multi, K, tmp):
         tmp / "track", timeout=300)
     wall = time.perf_counter() - t0
     check_ranks(res, "nccl" if torch.cuda.device_count() >= 2 else "gloo",
-                {"render_views": 5, "mha_packed_qkv": 5}, 5, "sharded track_batch")
+                {"render_views": 5, "mha_packed_qkv": 5, "padded_stem": 5, "crop_observed": 5}, 5,
+                "sharded track_batch")
     a = res[0]["arrays"]
     rot = [metrics.rotation_error_deg_sym(p, g, cube.symmetries) for p, g in zip(a["t0_poses"], gts)]
     trans = [float(np.linalg.norm(p[:3, 3] - g[:3, 3])) for p, g in zip(a["t0_poses"], gts)]
@@ -2084,7 +2082,7 @@ def run_train(torch, np, fp, attention, render, transforms, sweep, profiling, K,
     assets = [family.random_family_asset(s) for s in range(4)]
     bank = multi.build_mesh_bank(assets, device="cuda")
     log(f"train: bank {bank.names}, faces "
-        f"{[int(m.face_valid.sum()) for m in bank.meshes]}, diameter {bank.diameter}")
+        f"{[m.faces.shape[0] for m in bank.meshes]}, diameter {bank.diameter}")
     big = max(range(len(assets)), key=lambda i: assets[i].faces.shape[0])
     render_rows = check_render(torch, transforms, render, sweep,
                                [(bank.names[big], 64, 160, assets[big])])

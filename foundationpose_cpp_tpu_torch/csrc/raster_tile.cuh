@@ -143,8 +143,7 @@ __device__ __forceinline__ void pixel_range(float lo, float hi, int size, int& i
 struct View {
   const float4* clip;  // vertex v's clip coordinates at clip[v * vstride]
   int vstride;
-  const int* faces;                 // (F, 3)
-  const unsigned char* face_valid;  // (F,) or null: every face is valid
+  const int* faces;     // (F, 3)
   const float* coeffs;  // (F, 15) coefficients handed in, or null: built here
   int F, H, W;
 };
@@ -174,7 +173,6 @@ __device__ __forceinline__ Corners load_corners(const View& v, int f) {
 // coefficients; false when the face is culled or misses the region.
 __device__ __forceinline__ bool setup_face(const View& v, int f, int rx0, int ry0, int rx1,
                                            int ry1, Face& face) {
-  if (v.face_valid != nullptr && !v.face_valid[f]) return false;
   const Corners k = load_corners(v, f);
   if (!(k.p0.w > 0.0f && k.p1.w > 0.0f && k.p2.w > 0.0f)) return false;
   const float ux0 = ndc(k.p0.x, k.p0.w), ux1 = ndc(k.p1.x, k.p1.w), ux2 = ndc(k.p2.x, k.p2.w);

@@ -12,7 +12,7 @@
 // (and do not sum to 0) with z/w in [-1, 1], the lowest face id on equal z/w,
 // and writes (b0, b1, z/w, id + 1) with b0, b1 = a0 / sum, a1 / sum clamped
 // to [0, 1]; background pixels are exactly zero. Faces with a vertex at
-// w <= 0, a degenerate edge system or a false face_valid never win.
+// w <= 0 or a degenerate edge system never win.
 //
 // What bounds it on the H100: at one 480x640 view the output (16 bytes a
 // pixel, 4.9 MB) takes about 1.5 us at 3.35 TB/s, and the tests the data
@@ -56,14 +56,13 @@ using Shared = raster_tile::Shared<RW, RH>;
 
 __global__ void __launch_bounds__(NTHREAD)
 rasterize_kernel(const float4* __restrict__ clip, const int* __restrict__ faces,
-                 const unsigned char* __restrict__ face_valid,
                  const float* __restrict__ coeffs, float4* __restrict__ out, int V, int F, int H,
                  int W) {
   extern __shared__ __align__(16) unsigned char shared_raw[];
   Shared& sh = *reinterpret_cast<Shared*>(shared_raw);
   const int n = blockIdx.z;
   const int rx0 = blockIdx.x * RW, ry0 = blockIdx.y * RH;
-  const raster_tile::View view{clip + (size_t)n * V, 1, faces, face_valid,
+  const raster_tile::View view{clip + (size_t)n * V, 1, faces,
                                coeffs == nullptr ? nullptr : coeffs + (size_t)n * F * 15,
                                F, H, W};
   raster_tile::scatter_faces<RW, RH>(sh, view, rx0, ry0);
@@ -93,21 +92,18 @@ rasterize_kernel(const float4* __restrict__ clip, const int* __restrict__ faces,
 
 }  // namespace
 
-// clip (N, V, 4) f32, faces (F, 3) int32, face_valid (F,) bytes or null,
-// out (N, H, W, 4) f32. coeffs is null, or (N, F, 15) plane coefficients
-// that take the place of the ones the kernel builds (a check of the scatter
-// and the resolve alone).
-extern "C" int fp_rasterize(const void* clip, const void* faces, const void* face_valid,
-                            const void* coeffs, void* out, int N, int V, int F, int H, int W,
-                            void* stream) {
+// clip (N, V, 4) f32, faces (F, 3) int32, out (N, H, W, 4) f32. coeffs is
+// null, or (N, F, 15) plane coefficients that take the place of the ones
+// the kernel builds (a check of the scatter and the resolve alone).
+extern "C" int fp_rasterize(const void* clip, const void* faces, const void* coeffs, void* out,
+                            int N, int V, int F, int H, int W, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       rasterize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Shared));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((W + RW - 1) / RW, (H + RH - 1) / RH, N);
   rasterize_kernel<<<grid, NTHREAD, sizeof(Shared), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(clip), static_cast<const int*>(faces),
-      static_cast<const unsigned char*>(face_valid), static_cast<const float*>(coeffs),
-      static_cast<float4*>(out), V, F, H, W);
+      static_cast<const float*>(coeffs), static_cast<float4*>(out), V, F, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -72,9 +72,9 @@ __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
 // A mesh table's row per view (int32): its mesh's first vertex and vertex
 // count in the concatenated vertices, normals and texcoords, its first face
-// and face count (padded) in the concatenated faces and face flags, its first
-// texel and texture height and width in the concatenated texels, and the
-// view's first slot in the verts scratch (ops/render.py ViewTable).
+// and face count in the concatenated faces, its first texel and texture
+// height and width in the concatenated texels, and the view's first slot in
+// the verts scratch (ops/render.py ViewTable).
 constexpr int TABLE_COLS = 8;
 constexpr int COL_VERTEX_FIRST = 0, COL_VERTEX_COUNT = 1, COL_FACE_FIRST = 2,
               COL_FACE_COUNT = 3, COL_TEXEL_FIRST = 4, COL_TEX_H = 5, COL_TEX_W = 6,
@@ -135,18 +135,17 @@ __global__ void vertex_kernel(const float* __restrict__ vertices,
 }
 
 // With TABLE, row n of the table selects view n's mesh out of the
-// concatenated faces, face flags, texcoords and texels, and its scratch
-// vertices; its diameter is diameters[n], whose half is the one-mesh launch's
-// ds (halving an f32 is exact), and F, Th, Tw and ds are read there.
+// concatenated faces, texcoords and texels, and its scratch vertices; its
+// diameter is diameters[n], whose half is the one-mesh launch's ds (halving
+// an f32 is exact), and F, Th, Tw and ds are read there.
 template <int RW, int RH, bool TABLE>
 __global__ void __launch_bounds__(NTHREAD)
 render_kernel(const float4* __restrict__ verts, const float* __restrict__ coeffs,
               const float* __restrict__ texcoords, const int* __restrict__ faces,
-              const unsigned char* __restrict__ face_valid, const float* __restrict__ tex,
-              const float* __restrict__ poses, float* __restrict__ out, int F, int V, int H,
-              int W, int Th, int Tw, float ds, float min_depth, float max_depth,
-              float w_ambient, float w_diffuse, const int* __restrict__ table,
-              const float* __restrict__ diameters) {
+              const float* __restrict__ tex, const float* __restrict__ poses,
+              float* __restrict__ out, int F, int V, int H, int W, int Th, int Tw, float ds,
+              float min_depth, float max_depth, float w_ambient, float w_diffuse,
+              const int* __restrict__ table, const float* __restrict__ diameters) {
   using Shared = raster_tile::Shared<RW, RH>;
   extern __shared__ __align__(16) unsigned char shared_raw[];
   Shared& sh = *reinterpret_cast<Shared*>(shared_raw);
@@ -157,7 +156,6 @@ render_kernel(const float4* __restrict__ verts, const float* __restrict__ coeffs
     const int* row = table + (size_t)n * TABLE_COLS;
     view_verts = verts + (size_t)row[COL_SCRATCH_FIRST] * 2;
     faces += (size_t)row[COL_FACE_FIRST] * 3;
-    face_valid += row[COL_FACE_FIRST];
     texcoords += (size_t)row[COL_VERTEX_FIRST] * 2;
     tex += (size_t)row[COL_TEXEL_FIRST] * 3;
     F = row[COL_FACE_COUNT];
@@ -167,7 +165,7 @@ render_kernel(const float4* __restrict__ verts, const float* __restrict__ coeffs
   } else {
     view_verts = verts + (size_t)n * V * 2;
   }
-  const raster_tile::View view{view_verts, 2, faces, face_valid,
+  const raster_tile::View view{view_verts, 2, faces,
                                coeffs == nullptr ? nullptr : coeffs + (size_t)n * F * 15,
                                F, H, W};
   // phase 1: nearest covering face per pixel, lowest id on equal depth
@@ -259,7 +257,6 @@ struct RenderArgs {
   const float* coeffs;
   const float* texcoords;
   const int* faces;
-  const unsigned char* face_valid;
   const float* tex;
   const float* poses;
   float* out;
@@ -277,9 +274,8 @@ cudaError_t launch_render(const RenderArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   dim3 grid((a.W + RW - 1) / RW, (a.H + RH - 1) / RH, a.N);
   render_kernel<RW, RH, TABLE><<<grid, NTHREAD, shared, stream>>>(
-      a.verts, a.coeffs, a.texcoords, a.faces, a.face_valid, a.tex, a.poses, a.out, a.F, a.V,
-      a.H, a.W, a.Th, a.Tw, a.ds, a.min_depth, a.max_depth, a.w_ambient, a.w_diffuse, a.table,
-      a.diameters);
+      a.verts, a.coeffs, a.texcoords, a.faces, a.tex, a.poses, a.out, a.F, a.V, a.H, a.W, a.Th,
+      a.Tw, a.ds, a.min_depth, a.max_depth, a.w_ambient, a.w_diffuse, a.table, a.diameters);
   return cudaGetLastError();
 }
 
@@ -296,18 +292,18 @@ cudaError_t launch_regions(const RenderArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// vertices, normals (V, 3), texcoords (V, 2), faces (F, 3) int32, face_valid
-// (F,) bytes, tex (Th, Tw, 3), poses, clip_mat (N, 4, 4), verts (N, V, 8)
-// scratch, out (N, H, W, 6). With transform != 0 vertex_kernel fills verts
-// first; with 0 the caller has filled it and vertices, normals and clip_mat
-// are not read. coeffs is null, or (N, F, 15) plane coefficients that take
+// vertices, normals (V, 3), texcoords (V, 2), faces (F, 3) int32, tex
+// (Th, Tw, 3), poses, clip_mat (N, 4, 4), verts (N, V, 8) scratch, out
+// (N, H, W, 6). With transform != 0 vertex_kernel fills verts first; with
+// 0 the caller has filled it and vertices, normals and clip_mat are not
+// read. coeffs is null, or (N, F, 15) plane coefficients that take
 // the place of the ones the kernel builds (a check of the scatter and the
 // resolve alone).
 extern "C" int fp_render_views(const void* vertices, const void* normals, const void* texcoords,
-                               const void* faces, const void* face_valid, const void* tex,
-                               const void* poses, const void* clip_mat, void* verts,
-                               const void* coeffs, void* out, int N, int F, int V, int H, int W,
-                               int Th, int Tw, float ds, float min_depth, float max_depth,
+                               const void* faces, const void* tex, const void* poses,
+                               const void* clip_mat, void* verts, const void* coeffs,
+                               void* out, int N, int F, int V, int H, int W, int Th, int Tw,
+                               float ds, float min_depth, float max_depth,
                                float w_ambient, float w_diffuse, int transform, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (transform != 0) {
@@ -321,7 +317,6 @@ extern "C" int fp_render_views(const void* vertices, const void* normals, const 
   }
   const RenderArgs a{static_cast<const float4*>(verts), static_cast<const float*>(coeffs),
                      static_cast<const float*>(texcoords), static_cast<const int*>(faces),
-                     static_cast<const unsigned char*>(face_valid),
                      static_cast<const float*>(tex), static_cast<const float*>(poses),
                      static_cast<float*>(out), N, F, V, H, W, Th, Tw,
                      ds, min_depth, max_depth, w_ambient, w_diffuse, nullptr, nullptr};
@@ -329,21 +324,21 @@ extern "C" int fp_render_views(const void* vertices, const void* normals, const 
 }
 
 // N views, each of its own mesh: vertices, normals (sum V, 3), texcoords
-// (sum V, 2), faces (sum F, 3) int32 with indices local to their mesh,
-// face_valid (sum F,) bytes and tex (sum Th * Tw, 3) concatenate the meshes;
-// table (N, TABLE_COLS) int32 selects view n's mesh and its slots in the
-// verts scratch (sum over the views of their vertex counts, 8 floats each);
-// diameters (N,) f32; poses, clip_mat (N, 4, 4); out (N, H, W, 6).
-// V_max is the largest vertex count of a view. Both kernels run, as
-// fp_render_views runs them with transform != 0, and each view computes
-// what a one-mesh launch of its mesh computes for it.
+// (sum V, 2), faces (sum F, 3) int32 with indices local to their mesh and
+// tex (sum Th * Tw, 3) concatenate the meshes; table (N, TABLE_COLS) int32
+// selects view n's mesh and its slots in the verts scratch (sum over the
+// views of their vertex counts, 8 floats each); diameters (N,) f32; poses,
+// clip_mat (N, 4, 4); out (N, H, W, 6). V_max is the largest vertex count
+// of a view. Both kernels run, as fp_render_views runs them with
+// transform != 0, and each view computes what a one-mesh launch of its mesh
+// computes for it.
 extern "C" int fp_render_views_table(const void* vertices, const void* normals,
                                      const void* texcoords, const void* faces,
-                                     const void* face_valid, const void* tex,
-                                     const void* poses, const void* clip_mat, const void* table,
-                                     const void* diameters, void* verts, void* out, int N,
-                                     int V_max, int H, int W, float min_depth, float max_depth,
-                                     float w_ambient, float w_diffuse, void* stream) {
+                                     const void* tex, const void* poses, const void* clip_mat,
+                                     const void* table, const void* diameters, void* verts,
+                                     void* out, int N, int V_max, int H, int W,
+                                     float min_depth, float max_depth, float w_ambient,
+                                     float w_diffuse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* rows = static_cast<const int*>(table);
   vertex_kernel<true><<<dim3((unsigned int)((V_max + 255) / 256), (unsigned int)N), 256, 0, s>>>(
@@ -354,7 +349,6 @@ extern "C" int fp_render_views_table(const void* vertices, const void* normals,
   if (err != cudaSuccess) return (int)err;
   const RenderArgs a{static_cast<const float4*>(verts), nullptr,
                      static_cast<const float*>(texcoords), static_cast<const int*>(faces),
-                     static_cast<const unsigned char*>(face_valid),
                      static_cast<const float*>(tex), static_cast<const float*>(poses),
                      static_cast<float*>(out), N, 0, 0, H, W, 0, 0,
                      0.0f, min_depth, max_depth, w_ambient, w_diffuse, rows,

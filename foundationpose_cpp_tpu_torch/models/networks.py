@@ -43,7 +43,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from foundationpose_cpp_tpu_torch.ops import attention
+from foundationpose_cpp_tpu_torch.ops import attention, cuda_build
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +134,7 @@ def _zeros(shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tens
         return torch.zeros(shape, dtype=dtype, device=device)
 
 
+@cuda_build.counted
 def padded_stem(conv: Conv, render_input: torch.Tensor, transf_input: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
     """The stem ``conv`` over the siamese batch [render_input; transf_input]
@@ -157,9 +158,6 @@ def padded_stem(conv: Conv, render_input: torch.Tensor, transf_input: torch.Tens
                    conv.stride, conv.padding)
     padded_stem.launches += 1
     return out
-
-
-padded_stem.launches = 0
 
 
 def stem(conv: Conv, render_input: torch.Tensor, transf_input: torch.Tensor,

@@ -162,6 +162,7 @@ def _check_kernel_input(t: torch.Tensor, tokens: int, hd: int, batch: int, what:
         raise ValueError(f"{what}: the attention kernel takes at most 65535 batch rows, got {batch}")
 
 
+@cuda_build.counted
 def mha_packed_qkv(
     qkv: torch.Tensor, num_heads: int, scale: float | None = None
 ) -> torch.Tensor:
@@ -197,9 +198,7 @@ def mha_packed_qkv(
     return out
 
 
-mha_packed_qkv.launches = 0
-
-
+@cuda_build.counted
 def mha_whole_head(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
 ) -> torch.Tensor:
@@ -237,6 +236,3 @@ def mha_whole_head(
     cuda_build.check(err, "mha_whole_head")
     mha_whole_head.launches += 1
     return out
-
-
-mha_whole_head.launches = 0

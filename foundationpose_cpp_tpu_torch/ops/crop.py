@@ -75,6 +75,7 @@ def _check(rgb, xyz_map, tfs, poses, downscale, ch: int, cw: int) -> None:
         raise ValueError(f"crop_observed: bad crop {ch}x{cw}")
 
 
+@cuda_build.counted
 def crop_observed(
     rgb: torch.Tensor,
     xyz_map: torch.Tensor,
@@ -126,6 +127,3 @@ def crop_observed(
     cuda_build.check(err, "crop_observed")
     crop_observed.launches += 1
     return out
-
-
-crop_observed.launches = 0

@@ -6,7 +6,8 @@ own into ``lib<name>_<digest>.so`` under ``BUILD_DIR`` (the checkout's
 where the digest covers the source, the shared ``csrc/*.cuh`` headers and
 the flags, so an edited source never loads a stale library. Nothing is built when the package is imported: a
 wrapper builds its library on first use, and ``build`` starts one nvcc per
-source, all at once.
+source, all at once. The wrappers that count their launches register
+themselves here (``counted``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+from typing import Callable
 
 import torch
 
@@ -118,6 +120,34 @@ def refuse_grad(*tensors, what: str) -> None:
             f"{what}: the CUDA kernel is forward-only and an input requires a gradient; "
             "call it under torch.no_grad(), or use the plain version (attn_impl='plain')"
         )
+
+
+# every wrapper that counts the launches of its kernel, and the nets' padded
+# stem, which counts the calls that take its route; by name (``counted``)
+COUNTERS: dict[str, Callable] = {}
+
+
+def counted(fn: Callable) -> Callable:
+    """Register ``fn``, which adds one to ``fn.launches`` a launch, as a
+    counted wrapper. A replay of a captured program runs no wrapper: the
+    program reads these counters around its capture and adds each one's
+    increase on every replay (``pipeline.programs``)."""
+    fn.launches = 0
+    COUNTERS[fn.__name__] = fn
+    return fn
+
+
+def launch_counts() -> dict[str, int]:
+    """Each counted wrapper's launches so far, by name."""
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def launches_since(before: dict[str, int]) -> dict[str, int]:
+    """The launches of each counted wrapper that launched since
+    ``launch_counts()`` returned ``before``, by name; a wrapper registered
+    since then counts from 0."""
+    since = {name: n - before.get(name, 0) for name, n in launch_counts().items()}
+    return {name: d for name, d in since.items() if d}
 
 
 def check(err: int, what: str) -> None:

@@ -59,6 +59,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@cuda_build.counted
 def probe_grid(n_views: int, n_rows: int, n_tx: int, lanes: int, device="cuda") -> torch.Tensor:
     """The probe's output, (n_views, n_rows, n_tx, 8, lanes) f32.
 
@@ -82,6 +83,3 @@ def probe_grid(n_views: int, n_rows: int, n_tx: int, lanes: int, device="cuda") 
     cuda_build.check(err, "probe_grid")
     probe_grid.launches += 1
     return out
-
-
-probe_grid.launches = 0

@@ -74,13 +74,7 @@ def _plane(c: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
     return c[..., 0:1] * fx + c[..., 1:2] * fy + c[..., 2:3]
 
 
-def rasterize(
-    clip: torch.Tensor,
-    faces: torch.Tensor,
-    h: int,
-    w: int,
-    face_valid: torch.Tensor | None = None,
-) -> torch.Tensor:
+def rasterize(clip: torch.Tensor, faces: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Rasterize N instance batches -> (N, h, w, 4) of (b0, b1, z/w, id+1).
 
     Scans face chunks with a running nearest-depth reduction per pixel; a
@@ -91,8 +85,6 @@ def rasterize(
     n = clip.shape[0]
     f = faces.shape[0]
     coeffs, valid = edge_coefficients(clip, faces)
-    if face_valid is not None:
-        valid = valid & face_valid[None, :]
     fxs, fys = pixel_basis(h, w, clip.device)
     fx = fxs.repeat(h)  # (hw,) row-major
     fy = fys.repeat_interleave(w)

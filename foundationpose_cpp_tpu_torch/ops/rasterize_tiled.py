@@ -32,14 +32,11 @@ EMPTY_KEY = (1 << 63) - 1  # the depth buffer's value where no face covers the p
 rasterize_tiled_plain = ras.rasterize
 
 
-def rasterize_prepass(clip: torch.Tensor, faces: torch.Tensor, h: int, w: int,
-                      face_valid: torch.Tensor | None = None):
+def rasterize_prepass(clip: torch.Tensor, faces: torch.Tensor, h: int, w: int):
     """What the kernel builds per (view, face), computed with plain tensor
     ops: (N, F, 15) plane coefficients and (N, F, 4) int32 pixel bboxes,
-    empty for faces that are invalid or behind the camera."""
+    empty for faces that are degenerate or behind the camera."""
     coeffs, valid = ras.edge_coefficients(clip, faces)
-    if face_valid is not None:
-        valid = valid & face_valid[None, :]
     n, f = valid.shape
     bbox = face_pixel_bbox(clip, faces, valid, h, w)
     return coeffs.reshape(n, f, 15).contiguous(), bbox
@@ -96,7 +93,6 @@ def rasterize_scatter_plain(
     faces: torch.Tensor,
     h: int,
     w: int,
-    face_valid: torch.Tensor | None = None,
     region: tuple[int, int] = REGION,
     coeffs: torch.Tensor | None = None,
 ) -> torch.Tensor:
@@ -114,8 +110,6 @@ def rasterize_scatter_plain(
     coeffs = coeffs.reshape(n, f, 15)
     valid = torch.all(clip[:, faces.long(), 3] > 0.0, dim=-1)
     valid &= torch.amax(torch.abs(coeffs[..., :9]), dim=-1) > 0.0
-    if face_valid is not None:
-        valid &= face_valid[None, :]
     bbox = face_pixel_bbox(clip, faces, valid, h, w).long()
     fxs, fys = ras.pixel_basis(h, w, dev)
     rh, rw = region
@@ -168,7 +162,7 @@ def rasterize_scatter_plain(
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the entry point's signature on a build of csrc/rasterize.cu."""
     lib.fp_rasterize.restype = ctypes.c_int
-    lib.fp_rasterize.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fp_rasterize.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.fp_rasterize_config.restype = None
     lib.fp_rasterize_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
     return lib
@@ -188,7 +182,7 @@ def kernel_config() -> dict:
     return dict(zip(("region_w", "region_h", "threads", "small_face", "shared_bytes"), cfg))
 
 
-def _check_inputs(clip, faces, h, w, face_valid, coeffs) -> None:
+def _check_inputs(clip, faces, h, w, coeffs) -> None:
     """Raise on what the kernel does not take."""
     if clip.dtype != torch.float32 or clip.dim() != 3 or clip.shape[-1] != 4:
         raise ValueError(f"rasterize kernel: clip must be (N, V, 4) f32, got "
@@ -196,10 +190,6 @@ def _check_inputs(clip, faces, h, w, face_valid, coeffs) -> None:
     if (faces.dtype != torch.int32 or faces.device != clip.device or faces.dim() != 2
             or faces.shape[1] != 3):
         raise ValueError("rasterize kernel: faces must be (F, 3) int32 on clip's device")
-    if face_valid is not None and (face_valid.dtype != torch.bool
-                                   or face_valid.device != clip.device
-                                   or face_valid.shape != faces.shape[:1]):
-        raise ValueError("rasterize kernel: face_valid must be (F,) bool on clip's device")
     n = clip.shape[0]
     if not (1 <= n <= 65535 and 1 <= h <= 65535 * REGION[0] and w >= 1):
         raise ValueError(f"rasterize kernel: bad shape n={n} h={h} w={w}")
@@ -209,32 +199,24 @@ def _check_inputs(clip, faces, h, w, face_valid, coeffs) -> None:
         raise ValueError(f"rasterize kernel: coeffs must be contiguous f32 {want} on clip's device")
 
 
-def rasterize_tiled(
-    clip: torch.Tensor,
-    faces: torch.Tensor,
-    h: int,
-    w: int,
-    face_valid: torch.Tensor | None = None,
-) -> torch.Tensor:
+@cuda_build.counted
+def rasterize_tiled(clip: torch.Tensor, faces: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Rasterize N views of clip-space vertices (N, V, 4) with faces (F, 3)
     into (N, h, w, 4) f32.
 
     CPU tensors go through the plain version. CUDA tensors launch the
     kernel (these checks, one allocation, one launch, no other tensor op),
-    which takes f32 clip, int32 faces and a bool face_valid on one device,
-    and raises on anything else.
+    which takes f32 clip and int32 faces on one device, and raises on
+    anything else.
     """
     if clip.device.type == "cpu":
-        return rasterize_tiled_plain(clip, faces, h, w, face_valid=face_valid)
-    out = launch_rasterize(clip, faces, h, w, face_valid)
+        return rasterize_tiled_plain(clip, faces, h, w)
+    out = launch_rasterize(clip, faces, h, w)
     rasterize_tiled.launches += 1
     return out
 
 
-rasterize_tiled.launches = 0
-
-
-def launch_rasterize(clip, faces, h: int, w: int, face_valid=None,
+def launch_rasterize(clip, faces, h: int, w: int,
                      coeffs: torch.Tensor | None = None) -> torch.Tensor:
     """Check the inputs, launch csrc/rasterize.cu and return its (N, h, w, 4)
     raster, without counting: ``rasterize_tiled`` is the entry point. With
@@ -243,19 +225,16 @@ def launch_rasterize(clip, faces, h: int, w: int, face_valid=None,
     resolve alone, which must agree with the plain version exactly."""
     if clip.device.type != "cuda":
         raise ValueError(f"unsupported device {clip.device}")
-    _check_inputs(clip, faces, h, w, face_valid, coeffs)
+    _check_inputs(clip, faces, h, w, coeffs)
     clip, faces = clip.contiguous(), faces.contiguous()
     if clip.data_ptr() % 16:
         raise ValueError("rasterize kernel: clip must be 16-byte aligned")
-    if face_valid is not None:
-        face_valid = face_valid.contiguous()
     n, v = clip.shape[:2]
     out = torch.empty((n, h, w, 4), dtype=torch.float32, device=clip.device)
     fn = _library().fp_rasterize
     with torch.cuda.device(clip.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(clip.data_ptr(), faces.data_ptr(),
-                 None if face_valid is None else face_valid.data_ptr(),
                  None if coeffs is None else coeffs.data_ptr(), out.data_ptr(),
                  n, v, faces.shape[0], h, w, stream)
     cuda_build.check(err, "rasterize_tiled")

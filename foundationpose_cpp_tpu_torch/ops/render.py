@@ -82,7 +82,7 @@ class ViewTable:
 
 
 def render_views_plain(
-    vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
+    vertices, normals, texcoords, faces, texture, poses, clip_mat,
     h: int, w: int, diameter, min_depth: float, max_depth: float,
     w_ambient: float, w_diffuse: float, rasterizer=ras.rasterize,
     table: ViewTable | None = None,
@@ -102,13 +102,13 @@ def render_views_plain(
             idx = torch.tensor(views, device=poses.device)
             out[idx] = render_views_plain(
                 vertices[v0:v0 + nv], normals[v0:v0 + nv], texcoords[v0:v0 + nv],
-                faces[f0:f0 + nf], face_valid[f0:f0 + nf],
-                texture[t0:t0 + th * tw].reshape(th, tw, 3), poses[idx], clip_mat[idx], h, w,
-                float(diameter[views[0]]), min_depth, max_depth, w_ambient, w_diffuse, rasterizer,
+                faces[f0:f0 + nf], texture[t0:t0 + th * tw].reshape(th, tw, 3), poses[idx],
+                clip_mat[idx], h, w, float(diameter[views[0]]), min_depth, max_depth, w_ambient,
+                w_diffuse, rasterizer,
             )
         return out
     clip = transforms.transform_points_homogeneous(clip_mat, vertices)
-    rast = rasterizer(clip, faces, h, w, face_valid=face_valid)
+    rast = rasterizer(clip, faces, h, w)
     attrs = vertex_attributes(poses, vertices, normals, texcoords)
     interp = ras.interpolate_attributes(attrs, rast, faces)
     color = ras.texture_bilinear_wrap(texture, interp[..., 4:6])
@@ -155,14 +155,12 @@ def face_pixel_bbox(
     return box.to(torch.int32).contiguous()
 
 
-def render_prepass(vertices, normals, texcoords, faces, face_valid, poses, clip_mat,
-                   h: int, w: int):
+def render_prepass(vertices, normals, texcoords, faces, poses, clip_mat, h: int, w: int):
     """What the kernel builds per (view, face) and (view, vertex), computed
     with plain tensor ops: (N, F, 15) plane coefficients, (N, F, 4) pixel
     bboxes, (N, V, 6) vertex attributes."""
     clip = transforms.transform_points_homogeneous(clip_mat, vertices)
     coeffs, valid = ras.edge_coefficients(clip, faces)
-    valid = valid & face_valid[None, :]
     n, f = valid.shape
     bbox = face_pixel_bbox(clip, faces, valid, h, w)
     attrs = vertex_attributes(poses, vertices, normals, texcoords)
@@ -195,12 +193,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the entry point's signature on a build of csrc/render.cu."""
     lib.fp_render_views.restype = ctypes.c_int
     lib.fp_render_views.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float] * 5
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] * 5
         + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.fp_render_views_table.restype = ctypes.c_int
     lib.fp_render_views_table.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     )
     lib.fp_render_config.restype = None
     lib.fp_render_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -223,8 +221,7 @@ def kernel_config() -> dict:
                      "few_region_w", "few_region_h", "few_shared_bytes", "few_blocks"), cfg))
 
 
-def _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses,
-                texture_dim: int = 3) -> None:
+def _check_mesh(vertices, normals, texcoords, faces, texture, poses, texture_dim: int = 3) -> None:
     """Raise on what the kernel does not take (texture_dim 2: a table's
     concatenated texels)."""
     dev = poses.device
@@ -240,39 +237,37 @@ def _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses,
             raise ValueError(f"render kernel: {name} must be {shape}, got {tuple(t.shape)}")
     if faces.dtype != torch.int32 or faces.device != dev or faces.dim() != 2 or faces.shape[1] != 3:
         raise ValueError("render kernel: faces must be (F, 3) int32 on the same device")
-    if (face_valid.dtype != torch.bool or face_valid.device != dev
-            or face_valid.shape != faces.shape[:1]):
-        raise ValueError("render kernel: face_valid must be (F,) bool on the same device")
     if texture.dim() != texture_dim or texture.shape[-1] != 3:
         want = "(Th, Tw, 3)" if texture_dim == 3 else "(texels, 3)"
         raise ValueError(f"render kernel: texture must be {want}, got {tuple(texture.shape)}")
 
 
+@cuda_build.counted
 def render_views(
-    vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
+    vertices, normals, texcoords, faces, texture, poses, clip_mat,
     h: int, w: int, diameter, min_depth: float, max_depth: float,
     w_ambient: float, w_diffuse: float, table: ViewTable | None = None,
 ) -> torch.Tensor:
     """Render N views into (N, h, w, 6) f32 (shaded rgb | downscaled xyz).
 
     vertices/normals (V, 3), texcoords (V, 2), faces (F, 3) int32,
-    face_valid (F,) bool, texture (Th, Tw, 3), poses/clip_mat (N, 4, 4),
-    diameter a number. With a ``table`` the mesh tensors concatenate
-    several meshes, texture is (texels, 3), and diameter is an (N,) f32
-    tensor on the views' device, which the card halves (exactly, so a
-    view's scale is the f32 that its number's half rounds to).
+    texture (Th, Tw, 3), poses/clip_mat (N, 4, 4), diameter a number.
+    With a ``table`` the mesh tensors concatenate several meshes, texture
+    is (texels, 3), and diameter is an (N,) f32 tensor on the views'
+    device, which the card halves (exactly, so a view's scale is the f32
+    that its number's half rounds to).
     CPU tensors go through the plain version. CUDA tensors go through the
     kernel (these checks, two allocations and its two launches, no other
     tensor op), which raises on what it does not take, and on an input that
     requires a gradient under grad mode (the kernel is forward-only).
     """
-    args = (vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat)
+    args = (vertices, normals, texcoords, faces, texture, poses, clip_mat)
     if poses.device.type == "cpu":
         return render_views_plain(*args, h, w, diameter, min_depth, max_depth,
                                   w_ambient, w_diffuse, table=table)
     if poses.device.type != "cuda":
         raise ValueError(f"unsupported device {poses.device}")
-    _check_mesh(vertices, normals, texcoords, faces, face_valid, texture, poses,
+    _check_mesh(vertices, normals, texcoords, faces, texture, poses,
                 texture_dim=2 if table is not None else 3)
     cuda_build.refuse_grad(*args, what="render_views")
     if (clip_mat.device != poses.device or clip_mat.dtype != torch.float32
@@ -282,22 +277,18 @@ def render_views(
     if not (1 <= n <= 65535 and h >= 1 and w >= 1):
         raise ValueError(f"render kernel: bad shape n={n} h={h} w={w}")
     if table is not None:
-        out = _launch_table(vertices, normals, texcoords, faces, face_valid, texture, poses,
-                            clip_mat, table, diameter, h, w, min_depth, max_depth, w_ambient,
-                            w_diffuse)
+        out = _launch_table(vertices, normals, texcoords, faces, texture, poses, clip_mat,
+                            table, diameter, h, w, min_depth, max_depth, w_ambient, w_diffuse)
     else:
         verts = torch.empty((n, vertices.shape[0], 8), dtype=torch.float32, device=poses.device)
-        out = _launch(vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
-                      verts, None, h, w, diameter, min_depth, max_depth, w_ambient, w_diffuse)
+        out = _launch(vertices, normals, texcoords, faces, texture, poses, clip_mat, verts, None,
+                      h, w, diameter, min_depth, max_depth, w_ambient, w_diffuse)
     render_views.launches += 1
     return out
 
 
-render_views.launches = 0
-
-
 def launch_render(
-    verts, texcoords, faces, face_valid, texture, poses, h: int, w: int, diameter: float,
+    verts, texcoords, faces, texture, poses, h: int, w: int, diameter: float,
     min_depth: float, max_depth: float, w_ambient: float, w_diffuse: float,
     coeffs: torch.Tensor | None = None,
 ) -> torch.Tensor:
@@ -307,24 +298,24 @@ def launch_render(
     ``coeffs`` (N, F, 15), as ``render_prepass`` gives them, the kernel reads
     these plane coefficients and builds none: the scatter and the resolve
     alone, which must agree with the plain version exactly."""
-    _check_mesh(None, None, texcoords, faces, face_valid, texture, poses)
+    _check_mesh(None, None, texcoords, faces, texture, poses)
     cuda_build.refuse_grad(verts, texcoords, texture, poses, coeffs, what="launch_render")
     n, v = poses.shape[0], texcoords.shape[0]
     for name, t, shape in (("verts", verts, (n, v, 8)), ("coeffs", coeffs, (n, faces.shape[0], 15))):
         if t is not None and (t.device != poses.device or t.dtype != torch.float32
                               or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"render kernel: {name} must be contiguous f32 {shape} on {poses.device}")
-    return _launch(None, None, texcoords, faces, face_valid, texture, poses, None, verts, coeffs,
+    return _launch(None, None, texcoords, faces, texture, poses, None, verts, coeffs,
                    h, w, diameter, min_depth, max_depth, w_ambient, w_diffuse)
 
 
-def _launch(vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat, verts,
-            coeffs, h, w, diameter, min_depth, max_depth, w_ambient, w_diffuse) -> torch.Tensor:
+def _launch(vertices, normals, texcoords, faces, texture, poses, clip_mat, verts, coeffs, h, w,
+            diameter, min_depth, max_depth, w_ambient, w_diffuse) -> torch.Tensor:
     """One call into csrc/render.cu: the vertex kernel when ``vertices`` is
     given, then the render kernel. Returns the (N, h, w, 6) image."""
     transform = vertices is not None
     inputs = [t.contiguous() if t is not None else None
-              for t in (vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat)]
+              for t in (vertices, normals, texcoords, faces, texture, poses, clip_mat)]
     n, v = poses.shape[0], texcoords.shape[0]
     out = torch.empty((n, h, w, 6), dtype=torch.float32, device=poses.device)
     for name, t in (("texcoords", inputs[2]), ("verts", verts)):
@@ -343,7 +334,7 @@ def _launch(vertices, normals, texcoords, faces, face_valid, texture, poses, cli
     return out
 
 
-def _launch_table(vertices, normals, texcoords, faces, face_valid, texture, poses, clip_mat,
+def _launch_table(vertices, normals, texcoords, faces, texture, poses, clip_mat,
                   table: ViewTable, diameters, h, w, min_depth, max_depth, w_ambient,
                   w_diffuse) -> torch.Tensor:
     """One call into csrc/render.cu's table entry: the vertex kernel over each
@@ -355,8 +346,8 @@ def _launch_table(vertices, normals, texcoords, faces, face_valid, texture, pose
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"render kernel: {name} must be contiguous {dtype} {shape} "
                              f"on {poses.device}")
-    inputs = [t.contiguous() for t in (vertices, normals, texcoords, faces, face_valid, texture,
-                                       poses, clip_mat)]
+    inputs = [t.contiguous() for t in (vertices, normals, texcoords, faces, texture, poses,
+                                       clip_mat)]
     if inputs[2].data_ptr() % 16:
         raise ValueError("render kernel: texcoords must be 16-byte aligned")
     verts = torch.empty((table.scratch_vertices, 8), dtype=torch.float32, device=poses.device)

@@ -21,10 +21,11 @@ there are fewer cards than ranks) and runs every task:
 
 On the card a task runs once to warm up (``warmup_collectives`` counts
 its collectives). Then one counted run, for which the rank records the
-launches of the render and attention kernels and every
-``torch.distributed`` collective it issued; under NCCL that run is made
-under ``torch.cuda.set_sync_debug_mode("error")``, so that a step that
-waits for the card raises. ``"reps": R`` times R more runs (host clock, the
+launches of every counted kernel wrapper that launched
+(``ops.cuda_build.COUNTERS``) and every ``torch.distributed`` collective
+it issued; under NCCL that run is made under
+``torch.cuda.set_sync_debug_mode("error")``, so that a step that waits for
+the card raises. ``"reps": R`` times R more runs (host clock, the
 card synchronised). Rank 0 then runs the single-process function
 (``register_step`` with ``hyp_valid``, or ``track_step``) on the same
 inputs as the reference (``ref_*`` arrays), timed likewise, while the
@@ -57,7 +58,7 @@ import torch.distributed as dist
 from foundationpose_cpp_tpu_torch.config import FoundationPoseConfig
 from foundationpose_cpp_tpu_torch.meshio import procedural
 from foundationpose_cpp_tpu_torch.models import convert_jax
-from foundationpose_cpp_tpu_torch.ops import attention, render
+from foundationpose_cpp_tpu_torch.ops import cuda_build
 from foundationpose_cpp_tpu_torch.parallel import sharding
 from foundationpose_cpp_tpu_torch.pipeline import programs
 from foundationpose_cpp_tpu_torch.pipeline.foundationpose import register_step, track_step
@@ -73,8 +74,6 @@ COLLECTIVES = (
     "monitored_barrier", "recv", "reduce", "reduce_scatter", "reduce_scatter_tensor",
     "scatter", "scatter_object_list", "send",
 )
-KERNELS = {"render_views": render.render_views, "mha_packed_qkv": attention.mha_packed_qkv,
-           "mha_whole_head": attention.mha_whole_head}
 
 
 @dataclasses.dataclass
@@ -241,12 +240,10 @@ def _run_task(task: dict, hg: sharding.HypGroup, ctx: dict) -> tuple[dict, dict]
             run()  # warm-up: cuDNN plans, the communicators, the captures
         meta["warmup_collectives"] = dict(collectives)
         torch.cuda.synchronize(dev)
-    for fn in KERNELS.values():
-        fn.launches = 0
+    before = cuda_build.launch_counts()
     with count_collectives() as collectives, no_host_sync(hg.backend == "nccl"):
         got = run()
-    meta.update(collectives=dict(collectives),
-                launches={name: fn.launches for name, fn in KERNELS.items()})
+    meta.update(collectives=dict(collectives), launches=cuda_build.launches_since(before))
     arrays = {name: t.cpu().numpy() for name, t in zip(names, got)}
     reps = task.get("reps", 0)
     dist.barrier()

@@ -28,8 +28,9 @@ there is no eager fallback on the card. On the CPU a Program calls its
 function eagerly, because the caller chose that device.
 
 Launch counters: the kernels' wrappers count their launches in Python
-(``render_views.launches`` ...), which a replay does not run. A Program
-records each counter's increase during its capture, takes it back (the
+(``render_views.launches`` ...; the registry ``ops.cuda_build.COUNTERS``),
+which a replay does not run. A Program records each counter's increase
+during its capture, by the wrapper's name, takes it back (the
 capture launched nothing) and adds it on every replay, so a counter counts
 the kernel launches the card made: one call's worth on the first call (the
 run before the capture) and on each replay. A recorded public call
@@ -64,21 +65,8 @@ from typing import Any, Callable, Iterable
 
 import torch
 
-from foundationpose_cpp_tpu_torch.models import networks
-from foundationpose_cpp_tpu_torch.ops import attention, crop, probe_grid, rasterize_tiled, render
+from foundationpose_cpp_tpu_torch.ops import cuda_build
 from foundationpose_cpp_tpu_torch.utils import profiling
-
-# every wrapper that counts the launches of its kernel, and the nets'
-# padded stem, which counts the calls that take its route
-COUNTED = (
-    attention.mha_packed_qkv,
-    attention.mha_whole_head,
-    render.render_views,
-    rasterize_tiled.rasterize_tiled,
-    probe_grid.probe_grid,
-    networks.padded_stem,
-    crop.crop_observed,
-)
 
 
 # (the stage marks of the Program being captured, its event factory) during
@@ -96,13 +84,10 @@ def stage(name: str) -> None:
         marks[-1][1].record()
 
 
-def launch_counts() -> tuple[int, ...]:
-    return tuple(fn.launches for fn in COUNTED)
-
-
-def _set_counts(counts: Iterable[int]) -> None:
-    for fn, n in zip(COUNTED, counts):
-        fn.launches = n
+def _add_launches(launches: dict[str, int]) -> None:
+    """Adds ``launches`` (by counted wrapper's name) to the counters."""
+    for name, n in launches.items():
+        cuda_build.COUNTERS[name].launches += n
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree):
@@ -232,7 +217,7 @@ class Program:
         self._graph = None
         self._inputs: list[torch.Tensor] = []
         self._outputs = None
-        self._delta: tuple[int, ...] = ()
+        self._delta: dict[str, int] = {}
         self._marks: list[tuple[str | None, Any]] = []  # (stage, event), the end's name None
         self.capture_ms: float | None = None
         self.nodes: int | None = None
@@ -245,7 +230,7 @@ class Program:
 
     @property
     def launches_per_call(self) -> dict[str, int]:
-        return {fn.__name__: d for fn, d in zip(COUNTED, self._delta) if d}
+        return dict(self._delta)
 
     @property
     def stages(self) -> list[str]:
@@ -273,7 +258,7 @@ class Program:
                     f"program {self.key!r}: CUDA graph replay failed: {exc}") from exc
         self.replays += 1
         profiling.RECORDER.replays += 1
-        _set_counts(c + d for c, d in zip(launch_counts(), self._delta))
+        _add_launches(self._delta)
         if profiling.counting():
             profiling.count_launches(self.launches_per_call)
         if self._marks:
@@ -321,7 +306,7 @@ class Program:
                 profiling.count_bytes("load", buf.numel() * buf.element_size())
                 inputs.append(buf)
         result = graphs.warm_up(self.fn, inputs)  # the warm-up run: this call's result
-        before = launch_counts()
+        before = cuda_build.launch_counts()
         t0 = time.perf_counter()
         self._marks = []
         if self.staged:
@@ -333,8 +318,9 @@ class Program:
                 f"program {self.key!r}: CUDA graph capture failed: {exc}") from exc
         finally:
             _capturing = None
-            delta = tuple(a - b for a, b in zip(launch_counts(), before))
-            _set_counts(before)  # the capture recorded the launches and made none
+            delta = cuda_build.launches_since(before)
+            # the capture recorded the launches and made none
+            _add_launches({name: -n for name, n in delta.items()})
         self.captures += 1
         profiling.RECORDER.captures += 1
         self.capture_ms = (time.perf_counter() - t0) * 1e3

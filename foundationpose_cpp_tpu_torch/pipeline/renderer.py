@@ -23,24 +23,19 @@ from foundationpose_cpp_tpu_torch.ops import crop, render
 from foundationpose_cpp_tpu_torch.utils.device import resolve_device
 
 
-FACE_PAD = 128
-
-
 @dataclasses.dataclass(frozen=True)
 class MeshConstants:
     """Device-resident mesh tensors, preprocessed once per mesh.
 
     Mirrors FoundationPoseRenderer::LoadTexturedMesh (:381-509): vertices are
     centered on the model center, the V texture coordinate is flipped, and the
-    texture is float [0,1]. Faces are padded to a multiple of FACE_PAD with
-    a validity mask, as in the JAX package.
+    texture is float [0,1]. The faces are the asset's own, unpadded.
     """
 
     vertices: torch.Tensor  # (V, 3) centered
     normals: torch.Tensor  # (V, 3)
     texcoords: torch.Tensor  # (V, 2) v-flipped
-    faces: torch.Tensor  # (Fp, 3) int32, padded
-    face_valid: torch.Tensor  # (Fp,) bool
+    faces: torch.Tensor  # (F, 3) int32
     texture: torch.Tensor  # (Th, Tw, 3) f32
     diameter: float
     model_center: torch.Tensor  # (3,)
@@ -52,12 +47,6 @@ class MeshConstants:
         device = resolve_device(device)
         verts = asset.vertices - asset.model_center[None, :]
         uv = np.stack([asset.texcoords[:, 0], 1.0 - asset.texcoords[:, 1]], axis=-1)
-        f = asset.faces
-        pad = (-f.shape[0]) % FACE_PAD
-        valid = np.ones((f.shape[0],), dtype=bool)
-        if pad:
-            f = np.concatenate([f, np.zeros((pad, 3), dtype=np.int32)], axis=0)
-            valid = np.concatenate([valid, np.zeros((pad,), dtype=bool)])
 
         def t(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -66,8 +55,7 @@ class MeshConstants:
             vertices=t(verts),
             normals=t(asset.vertex_normals),
             texcoords=t(uv),
-            faces=t(f, torch.int32),
-            face_valid=t(valid, torch.bool),
+            faces=t(asset.faces, torch.int32),
             texture=t(asset.texture),
             diameter=float(asset.diameter),
             model_center=t(asset.model_center),
@@ -78,11 +66,11 @@ class MeshConstants:
 @dataclasses.dataclass(frozen=True)
 class MeshSet:
     """N views' meshes, one a view, as one launch of the render kernel takes
-    them: the distinct ``MeshConstants`` concatenated (each keeps its
-    ``FACE_PAD`` padding; faces index their own mesh's vertices, texels are
-    flattened to (texels, 3)), ``table`` the row per view that selects its
-    mesh (``ops.render.ViewTable``), ``diameter`` the (N,) f32 diameters
-    on the device, which ``render_and_transform`` and
+    them: the distinct ``MeshConstants`` concatenated (faces index their own
+    mesh's vertices, texels are flattened to (texels, 3)), ``table`` the
+    row per view that selects its mesh (``ops.render.ViewTable``; its face
+    spans are the meshes' face counts), ``diameter`` the (N,) f32
+    diameters on the device, which ``render_and_transform`` and
     ``transforms.apply_refine_delta`` take where a mesh has a number. Built
     once per tuple of names (``FoundationPose``) and read by address by the
     graphs that captured it.
@@ -92,8 +80,7 @@ class MeshSet:
     vertices: torch.Tensor  # (sum V, 3)
     normals: torch.Tensor  # (sum V, 3)
     texcoords: torch.Tensor  # (sum V, 2)
-    faces: torch.Tensor  # (sum Fp, 3) int32, local to each mesh
-    face_valid: torch.Tensor  # (sum Fp,) bool
+    faces: torch.Tensor  # (sum F, 3) int32, local to each mesh
     texture: torch.Tensor  # (sum Th * Tw, 3) f32
     diameter: torch.Tensor  # (N,) f32
     table: render.ViewTable
@@ -121,7 +108,6 @@ class MeshSet:
             normals=cat("normals"),
             texcoords=cat("texcoords"),
             faces=cat("faces"),
-            face_valid=cat("face_valid"),
             texture=cat("texture", (-1, 3)),
             diameter=torch.tensor([meshes[n].diameter for n in names], dtype=torch.float32,
                                   device=device),
@@ -142,9 +128,8 @@ def render_branch(
     threshold/diameter-downscale. A ``MeshSet`` renders each pose on its own
     mesh, in one launch."""
     return render.render_views(
-        mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.face_valid,
-        mesh.texture, poses, clip_mat, ch, cw, mesh.diameter, cfg.min_depth,
-        cfg.max_depth, cfg.w_ambient, cfg.w_diffuse,
+        mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.texture, poses, clip_mat,
+        ch, cw, mesh.diameter, cfg.min_depth, cfg.max_depth, cfg.w_ambient, cfg.w_diffuse,
         table=mesh.table if isinstance(mesh, MeshSet) else None,
     )
 

@@ -81,13 +81,13 @@ def render_case(name: str, n: int, crop: int, device="cuda", asset=None):
                                             mesh.diameter)
     clip_mat = transforms.pose_clip_matrix(
         poses, transforms.construct_bbox2d(tfs, crop, crop), K, 480, 640, cfg.znear, cfg.zfar)
-    return (mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.face_valid,
-            mesh.texture, poses, clip_mat, crop, crop, mesh.diameter, cfg.min_depth,
-            cfg.max_depth, cfg.w_ambient, cfg.w_diffuse)
+    return (mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.texture, poses,
+            clip_mat, crop, crop, mesh.diameter, cfg.min_depth, cfg.max_depth, cfg.w_ambient,
+            cfg.w_diffuse)
 
 
 def raster_case(name: str, n: int, h: int, w: int, device="cuda", asset=None):
-    """(clip, faces, h, w, face_valid) of n views of the mesh ``name`` (or of
+    """(clip, faces, h, w) of n views of the mesh ``name`` (or of
     ``asset``) at 0.6 m, turned by 25 degrees a view, with the whole frame as
     the window."""
     import numpy as np
@@ -108,7 +108,7 @@ def raster_case(name: str, n: int, h: int, w: int, device="cuda", asset=None):
     bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]], device=device).expand(n, 4)
     clip_mat = transforms.pose_clip_matrix(poses, bbox2d, K, h, w)
     clip = transforms.transform_points_homogeneous(clip_mat, mesh.vertices)
-    return clip, mesh.faces, h, w, mesh.face_valid
+    return clip, mesh.faces, h, w
 
 
 def render_disagreement(got, want, tol: float = RENDER_TOL) -> tuple[float, float]:
@@ -263,11 +263,11 @@ def main(argv=None) -> int:
             for name, n, crop in RENDER_CASES:
                 case = render_case(name, n, crop)
                 sl = slice(0, min(n, 16))
-                part = case[:6] + (case[6][sl], case[7][sl]) + case[8:]
+                part = case[:5] + (case[5][sl], case[6][sl]) + case[7:]
                 want = render.render_views_plain(*part)
-                verts = render.vertex_prepass_plain(case[0], case[1], part[6], part[7])
-                coeffs, _, _ = render.render_prepass(*part[:5], part[6], part[7], crop, crop)
-                exact_args = (verts, case[2], case[3], case[4], case[5], part[6]) + case[8:]
+                verts = render.vertex_prepass_plain(case[0], case[1], part[5], part[6])
+                coeffs, _, _ = render.render_prepass(*part[:4], part[5], part[6], crop, crop)
+                exact_args = (verts, case[2], case[3], case[4], part[5]) + case[7:]
 
                 def check(got, want=want, exact_args=exact_args, coeffs=coeffs, sl=sl):
                     bad, err = render_disagreement(got[sl], want)
@@ -281,14 +281,13 @@ def main(argv=None) -> int:
                              lambda case=case: render.render_views(*case), check, 10)
         if "rasterize" in args.kernel:
             for name, n, h, w in RASTER_CASES:
-                clip, faces, _, _, valid = raster_case(name, n, h, w)
-                want = rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w, face_valid=valid)
-                coeffs, _ = rasterize_tiled.rasterize_prepass(clip, faces, h, w, valid)
+                clip, faces, _, _ = raster_case(name, n, h, w)
+                want = rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w)
+                coeffs, _ = rasterize_tiled.rasterize_prepass(clip, faces, h, w)
 
-                def check(got, want=want, clip=clip, faces=faces, h=h, w=w, valid=valid,
-                          coeffs=coeffs):
+                def check(got, want=want, clip=clip, faces=faces, h=h, w=w, coeffs=coeffs):
                     share, err = raster_agreement(got, want)
-                    exact = rasterize_tiled.launch_rasterize(clip, faces, h, w, valid, coeffs=coeffs)
+                    exact = rasterize_tiled.launch_rasterize(clip, faces, h, w, coeffs=coeffs)
                     share_x, err_x = raster_agreement(exact, want)
                     text = (f"ids_agree={share:.6%} max_abs_err={err:.2e}; handed-in "
                             f"coefficients: ids_agree={share_x:.6%} max_abs_err={err_x:.2e}")
@@ -296,8 +295,8 @@ def main(argv=None) -> int:
                             and err_x <= RASTER_TOL), text
 
                 run_variants("rasterize", f"{name} N={n} {h}x{w}",
-                             lambda clip=clip, faces=faces, h=h, w=w, valid=valid:
-                             rasterize_tiled.rasterize_tiled(clip, faces, h, w, face_valid=valid),
+                             lambda clip=clip, faces=faces, h=h, w=w:
+                             rasterize_tiled.rasterize_tiled(clip, faces, h, w),
                              check, 20)
     print("sweep: " + ("every checked variant agrees with the plain version" if ok
                        else "DISAGREEMENT or a failed build"), flush=True)

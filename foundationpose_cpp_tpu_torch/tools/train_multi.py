@@ -83,7 +83,7 @@ def main(argv: list[str] | None = None) -> None:
                                  device=device)
     gens = sorted({n.split("_")[0] for n in bank.names})
     log(f"bank: {bank.n_objects} objects, "
-        f"{sum(int(m.face_valid.sum()) for m in bank.meshes)} faces, generators {gens}")
+        f"{sum(m.faces.shape[0] for m in bank.meshes)} faces, generators {gens}")
 
     os.makedirs(args.out, exist_ok=True)
     tag = f"{args.tag}_{args.net}"

@@ -20,8 +20,8 @@ work is done. So the port records, in ``RECORDER``:
   ``upload_pinned`` (host to device), ``load`` (into a graph's static
   buffers), ``clone`` (of a graph's outputs) and ``readback`` (device to
   host); the launches of each counted kernel wrapper a call's graph
-  replays made (``programs.COUNTED``: ``render_views`` is K2's); and the process's
-  graph captures and replays and the models' mesh-set builds
+  replays made (``ops.cuda_build.COUNTERS``: ``render_views`` is K2's); and
+  the process's graph captures and replays and the models' mesh-set builds
   (``FoundationPose.track_batch`` over distinct meshes; one after the
   warm-up is a new tuple of names met while serving).
 

@@ -46,7 +46,7 @@ def render_scene(
     bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]], device=dev)
     clip_mat = transforms.pose_clip_matrix(poses, bbox2d, Kt, h, w, cfg.znear, cfg.zfar)
     clip = transforms.transform_points_homogeneous(clip_mat, mesh.vertices)
-    rast = rasterize_tiled(clip, mesh.faces, h, w, face_valid=mesh.face_valid)
+    rast = rasterize_tiled(clip, mesh.faces, h, w)
 
     pts_cam = transforms.transform_points(poses, mesh.vertices)
     xyz = ras.interpolate_attributes(pts_cam, rast, mesh.faces)

@@ -143,7 +143,7 @@ def _scene_clip(asset, h, w, card, n=1):
     poses = torch.as_tensor(poses, device=card)
     bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]], device=card).expand(n, 4)
     clip_mat = transforms.pose_clip_matrix(poses, bbox2d, K, h, w)
-    return transforms.transform_points_homogeneous(clip_mat, mesh.vertices), mesh.faces, mesh.face_valid
+    return transforms.transform_points_homogeneous(clip_mat, mesh.vertices), mesh.faces
 
 
 @pytest.mark.parametrize("case", ["house_480x640", "sphere_480x640", "random_n4_120x160",
@@ -159,50 +159,47 @@ def test_rasterize_kernel_matches_plain(card, case):
     pixel."""
     base_faces = None
     if case == "house_480x640":
-        (clip, faces, valid), h, w = _scene_clip(procedural.textured_house(), 480, 640, card), 480, 640
+        (clip, faces), h, w = _scene_clip(procedural.textured_house(), 480, 640, card), 480, 640
     elif case == "sphere_480x640":
         sphere = procedural.textured_uv_sphere(radius=0.05, n_lat=48, n_lon=64)
-        (clip, faces, valid), h, w = _scene_clip(sphere, 480, 640, card), 480, 640
+        (clip, faces), h, w = _scene_clip(sphere, 480, 640, card), 480, 640
     elif case == "house_n2_123x157":
-        (clip, faces, valid), h, w = _scene_clip(procedural.textured_house(), 123, 157, card, n=2), 123, 157
+        (clip, faces), h, w = _scene_clip(procedural.textured_house(), 123, 157, card, n=2), 123, 157
     elif case == "scan_480x640":
-        (clip, faces, valid), h, w = _scene_clip(_small_scan(raw=True), 480, 640, card), 480, 640
+        (clip, faces), h, w = _scene_clip(_small_scan(raw=True), 480, 640, card), 480, 640
     elif case == "cube_160x160":
-        (clip, faces, valid), h, w = _scene_clip(procedural.textured_cube(size=0.1), 160, 160, card), 160, 160
+        (clip, faces), h, w = _scene_clip(procedural.textured_cube(size=0.1), 160, 160, card), 160, 160
     else:
         n = {"random_n4_120x160": 4, "one_view_behind_camera": 3}.get(case, 1)
         h, w = (120, 160) if n == 4 else (37, 53)
         clip = _random_clip(n, 40, 0, card)
         faces = torch.as_tensor(np.random.default_rng(1).integers(0, 40, (100, 3)),
                                 dtype=torch.int32, device=card)
-        valid = torch.ones(100, dtype=torch.bool, device=card)
-        valid[:7] = False
         if case == "behind_camera":
             clip[0, faces[60:, 0].long(), 3] = -0.5
-            valid = valid & (clip[0, faces.long(), 3] > 0).all(dim=1)  # ids that must not win
         if case == "one_view_behind_camera":
             clip[1, :, 3] = -clip[1, :, 3]
         if case == "planted_ties":
             base_faces = faces.shape[0]
             faces = torch.cat([faces, faces[:50]])
-            valid = torch.cat([valid, valid[:50]])
+    # the faces of the first view with a corner behind the camera: they never win
+    valid = (clip[0, faces.long(), 3] > 0).all(dim=1)
     before = rasterize_tiled.rasterize_tiled.launches
-    mask = None if case == "behind_camera" else valid
-    got = rasterize_tiled.rasterize_tiled(clip, faces, h, w, face_valid=mask)
+    got = rasterize_tiled.rasterize_tiled(clip, faces, h, w)
     assert rasterize_tiled.rasterize_tiled.launches == before + 1
-    want = rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w, face_valid=mask)
+    want = rasterize_tiled.rasterize_tiled_plain(clip, faces, h, w)
     agree = got[..., 3] == want[..., 3]
     assert agree.float().mean().item() > 0.995
     torch.testing.assert_close(got[agree], want[agree], rtol=1e-4, atol=1e-4)
     assert (want[..., 3] > 0).float().mean().item() > 0.001
     invalid_ids = (~valid).nonzero()[:, 0] + 1
-    assert not torch.isin(got[..., 3], invalid_ids.float()).any()  # invalid faces never win
+    assert not torch.isin(got[:1, ..., 3], invalid_ids.float()).any()
     if base_faces is not None:
         assert not (got[..., 3] > base_faces).any()  # a copy never beats its original
     if case == "one_view_behind_camera":
         assert (got[1] == 0).all() and (got[0, ..., 3] > 0).any() and (got[2, ..., 3] > 0).any()
-    coeffs, _ = rasterize_tiled.rasterize_prepass(clip, faces, h, w, mask)
-    exact = rasterize_tiled.launch_rasterize(clip, faces, h, w, mask, coeffs=coeffs)
+    coeffs, _ = rasterize_tiled.rasterize_prepass(clip, faces, h, w)
+    exact = rasterize_tiled.launch_rasterize(clip, faces, h, w, coeffs=coeffs)
     assert rasterize_tiled.rasterize_tiled.launches == before + 1  # only the wrapper counts
     assert torch.equal(exact[..., 3], want[..., 3])
     torch.testing.assert_close(exact, want, rtol=1e-4, atol=1e-4)
@@ -219,11 +216,6 @@ def test_raster_kernels_reject_what_they_do_not_take(card):
         rasterize_tiled.rasterize_tiled(clip, faces.long(), 8, 8)
     with pytest.raises(ValueError, match="faces must be"):
         rasterize_tiled.rasterize_tiled(clip, faces.cpu(), 8, 8)
-    with pytest.raises(ValueError, match="face_valid must be"):
-        rasterize_tiled.rasterize_tiled(clip, faces, 8, 8, face_valid=torch.ones(4, device=card))
-    with pytest.raises(ValueError, match="face_valid must be"):
-        rasterize_tiled.rasterize_tiled(clip, faces, 8, 8,
-                                        face_valid=torch.ones(3, dtype=torch.bool, device=card))
     with pytest.raises(ValueError, match="bad shape"):
         rasterize_tiled.rasterize_tiled(clip, faces, 0, 8)
     with pytest.raises(ValueError, match="coeffs must be"):
@@ -231,14 +223,13 @@ def test_raster_kernels_reject_what_they_do_not_take(card):
     mesh = MeshConstants.from_asset(procedural.textured_cube(size=0.1), card)
     cfg = FoundationPoseConfig()
     poses = torch.eye(4, device=card)[None]
-    args = [mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.face_valid,
-            mesh.texture, poses, poses.clone(), 16, 16, mesh.diameter, cfg.min_depth,
-            cfg.max_depth, cfg.w_ambient, cfg.w_diffuse]
+    args = [mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.texture, poses,
+            poses.clone(), 16, 16, mesh.diameter, cfg.min_depth, cfg.max_depth, cfg.w_ambient,
+            cfg.w_diffuse]
     for index, bad, match in ((3, mesh.faces.long(), "faces must be"),
-                              (5, mesh.texture[..., :2], "texture must be"),
+                              (4, mesh.texture[..., :2], "texture must be"),
                               (0, mesh.vertices.double(), "vertices must be"),
-                              (4, mesh.face_valid.float(), "face_valid must be"),
-                              (7, poses[:, :3], "clip_mat must be"),
+                              (6, poses[:, :3], "clip_mat must be"),
                               (1, mesh.normals[:-1], "normals must be")):
         broken = list(args)
         broken[index] = bad
@@ -332,8 +323,8 @@ def _render_args(mesh, ch, cw, n, card, tz=0.45):
     K = torch.tensor([[300.0, 0, 64], [0, 300.0, 64], [0, 0, 1]], device=card)
     tfs = transforms.compute_crop_window_tf(poses, K, (ch, cw), 1.2, mesh.diameter)
     clip_mat = transforms.pose_clip_matrix(poses, transforms.construct_bbox2d(tfs, ch, cw), K, 128, 128)
-    return (mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.face_valid,
-            mesh.texture, poses, clip_mat, ch, cw, mesh.diameter, cfg.min_depth,
+    return (mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.texture, poses,
+            clip_mat, ch, cw, mesh.diameter, cfg.min_depth,
             cfg.max_depth, cfg.w_ambient, cfg.w_diffuse)
 
 
@@ -359,21 +350,19 @@ def test_render_kernel_matches_plain(card, name, ch, cw, n):
     mesh = MeshConstants.from_asset(asset, card)
     args = _render_args(mesh, ch, cw, n, card)
     if name == "planted_ties":
-        live = int(mesh.face_valid.sum())
-        faces = torch.cat([mesh.faces[:live], mesh.faces[:live]])
-        args = args[:3] + (faces, torch.ones(2 * live, dtype=torch.bool, device=card)) + args[5:]
+        args = args[:3] + (torch.cat([mesh.faces, mesh.faces]),) + args[4:]
     sl = slice(0, min(n, 8))
-    part = args[:6] + (args[6][sl], args[7][sl]) + args[8:]
+    part = args[:5] + (args[5][sl], args[6][sl]) + args[7:]
     want = render.render_views_plain(*part)
     assert (want.abs().sum(-1) > 0).float().mean().item() > 0.1
-    verts = render.vertex_prepass_plain(args[0], args[1], part[6], part[7])
-    coeffs, _, _ = render.render_prepass(*part[:5], part[6], part[7], ch, cw)
+    verts = render.vertex_prepass_plain(args[0], args[1], part[5], part[6])
+    coeffs, _, _ = render.render_prepass(*part[:4], part[5], part[6], ch, cw)
     before = render.render_views.launches
     got = render.render_views(*args)
     assert render.render_views.launches == before + 1
     bad = ((got[sl] - want).abs().amax(dim=-1) > 2e-3).float().mean().item()
     assert bad < 0.01
-    exact = render.launch_render(verts, args[2], args[3], args[4], args[5], part[6], *args[8:],
+    exact = render.launch_render(verts, args[2], args[3], args[4], part[5], *args[7:],
                                  coeffs=coeffs)
     assert render.render_views.launches == before + 1  # only the wrapper counts
     assert ((exact - want).abs().amax(dim=-1) > 2e-3).sum().item() == 0
@@ -382,11 +371,11 @@ def test_render_kernel_matches_plain(card, name, ch, cw, n):
 def test_render_kernel_view_behind_the_camera_is_zero(card):
     mesh = MeshConstants.from_asset(procedural.textured_cube(size=0.1), card)
     args = list(_render_args(mesh, 48, 48, 3, card))
-    args[6] = args[6].clone()
-    args[6][1, 2, 3] = -0.45  # the middle view looks away from the cube
+    args[5] = args[5].clone()
+    args[5][1, 2, 3] = -0.45  # the middle view looks away from the cube
     K = torch.tensor([[300.0, 0, 64], [0, 300.0, 64], [0, 0, 1]], device=card)
-    tfs = transforms.compute_crop_window_tf(args[6], K, (48, 48), 1.2, mesh.diameter)
-    args[7] = transforms.pose_clip_matrix(args[6], transforms.construct_bbox2d(tfs, 48, 48), K, 128, 128)
+    tfs = transforms.compute_crop_window_tf(args[5], K, (48, 48), 1.2, mesh.diameter)
+    args[6] = transforms.pose_clip_matrix(args[5], transforms.construct_bbox2d(tfs, 48, 48), K, 128, 128)
     got = render.render_views(*args)
     want = render.render_views_plain(*args)
     assert (got[1] == 0).all() and (want[1] == 0).all()
@@ -441,17 +430,17 @@ def test_kernels_refuse_inputs_that_require_grad(card):
         attention.mha_whole_head(q, k.requires_grad_(), v)
     mesh = MeshConstants.from_asset(procedural.textured_cube(size=0.1), card)
     args = list(_render_args(mesh, 32, 32, 2, card))
-    args[6] = args[6].clone().requires_grad_()
+    args[5] = args[5].clone().requires_grad_()
     with pytest.raises(RuntimeError, match="render_views.*forward-only"):
         render.render_views(*args)
-    verts = render.vertex_prepass_plain(args[0], args[1], args[6].detach(), args[7])
+    verts = render.vertex_prepass_plain(args[0], args[1], args[5].detach(), args[6])
     with pytest.raises(RuntimeError, match="launch_render.*forward-only"):
-        render.launch_render(verts.requires_grad_(), *args[2:6], args[6], *args[8:])
+        render.launch_render(verts.requires_grad_(), *args[2:5], args[5], *args[7:])
     with torch.no_grad():
         assert attention.mha_packed_qkv(qkv, 2).shape == (2, 40, 256)
         assert attention.mha_whole_head(q, k, v).shape == q.shape
         assert render.render_views(*args).shape == (2, 32, 32, 6)
-        assert render.launch_render(verts, *args[2:6], args[6], *args[8:]).shape == (2, 32, 32, 6)
+        assert render.launch_render(verts, *args[2:5], args[5], *args[7:]).shape == (2, 32, 32, 6)
 
 
 def test_refiner_step_on_the_card_trains_every_layer(card):
@@ -492,8 +481,9 @@ def test_sharded_register_on_one_rank_equals_register_step(card, tmp_path):
     weights. At one rank the Register is a captured program: its warm-up
     runs it and captures it (three all-gathers each), its counted run is a
     replay under set_sync_debug_mode("error") that issues no collective
-    from Python, launches K2 twice and K1 three times, equals the program's
-    function run eagerly bit for bit and register_step at atol 1e-6."""
+    from Python, launches K2, K6 and the padded stem twice and K1 three
+    times (no other counted wrapper), equals the program's function run
+    eagerly bit for bit and register_step at atol 1e-6."""
     from foundationpose_cpp_tpu_torch.geometry import icosphere
     from foundationpose_cpp_tpu_torch.parallel import ranks
 
@@ -513,7 +503,8 @@ def test_sharded_register_on_one_rank_equals_register_step(card, tmp_path):
     assert meta["backend"] == "nccl" and not meta["jax_imported"]
     assert task["collectives"] == {} and task["warmup_collectives"] == {"all_gather": 6}
     assert [p["key"] for p in task["programs"]] == [["sharded_register", 252, [480, 640], 1]]
-    assert task["launches"] == {"render_views": 2, "mha_packed_qkv": 3, "mha_whole_head": 0}
+    assert task["launches"] == {"render_views": 2, "mha_packed_qkv": 3, "padded_stem": 2,
+                                "crop_observed": 2}
     for name in ("best", "poses", "scores", "ok"):
         np.testing.assert_array_equal(a[f"t0_{name}"], a[f"t0_eager_{name}"])
     for name in ("best", "poses", "scores"):
@@ -525,8 +516,8 @@ def test_sharded_track_on_one_rank_is_a_program(card, tmp_path):
     """``make_sharded_track_batch`` at one rank over NCCL, two chained steps
     of two instances of the house: the first call runs the step and
     captures it (one all-gather each), the second and the counted run's
-    two are replays that issue none from Python and launch K1 and K2 once
-    a step; the poses equal the program's function run eagerly bit for bit
+    two are replays that issue none from Python and launch K1, K2, K6 and
+    the padded stem once a step; the poses equal the program's function run eagerly bit for bit
     and track_step's at atol 1e-6."""
     from foundationpose_cpp_tpu_torch.parallel import ranks
 
@@ -545,7 +536,8 @@ def test_sharded_track_on_one_rank_is_a_program(card, tmp_path):
     a = out["arrays"]
     assert task["collectives"] == {} and task["warmup_collectives"] == {"all_gather": 2}
     assert [p["key"] for p in task["programs"]] == [["sharded_track_batch", 2, [480, 640], 1]]
-    assert task["launches"] == {"render_views": 2, "mha_packed_qkv": 2, "mha_whole_head": 0}
+    assert task["launches"] == {"render_views": 2, "mha_packed_qkv": 2, "padded_stem": 2,
+                                "crop_observed": 2}
     np.testing.assert_array_equal(a["t0_poses"], a["t0_eager_poses"])
     np.testing.assert_allclose(a["t0_poses"], a["t0_ref_poses"], rtol=0, atol=1e-6)
 

@@ -82,7 +82,7 @@ def test_render_kernel_over_a_mesh_table_matches_plain(card, n_views, ch, cw):
     assert render.render_views.launches == before + 1
     want = render.render_views_plain(
         mesh_set.vertices, mesh_set.normals, mesh_set.texcoords, mesh_set.faces,
-        mesh_set.face_valid, mesh_set.texture, poses, clip, ch, cw, mesh_set.diameter,
+        mesh_set.texture, poses, clip, ch, cw, mesh_set.diameter,
         CFG.min_depth, CFG.max_depth, CFG.w_ambient, CFG.w_diffuse, table=mesh_set.table)
     assert (want.abs().sum(-1) > 0).float().mean().item() > 0.05
     assert ((got - want).abs().amax(dim=-1) > 2e-3).float().mean().item() < 0.01

@@ -239,6 +239,74 @@ def test_launch_counters_count_per_call(fake_graphs):
         assert render.render_views.launches == before + 2 * (i + 2)
 
 
+COUNTED = {"mha_packed_qkv", "mha_whole_head", "render_views", "rasterize_tiled", "probe_grid",
+           "crop_observed", "padded_stem"}
+
+
+def test_the_registry_holds_the_counted_wrappers():
+    """``cuda_build.COUNTERS`` is the one list of counted wrappers: each
+    registers itself where it is defined, under its own name."""
+    from foundationpose_cpp_tpu_torch.models import networks
+    from foundationpose_cpp_tpu_torch.ops import (
+        attention, crop, cuda_build, probe_grid, rasterize_tiled,
+    )
+
+    assert set(cuda_build.COUNTERS) == COUNTED
+    for module in (attention, render, rasterize_tiled, probe_grid, crop, networks):
+        for name in COUNTED & set(vars(module)):
+            assert cuda_build.COUNTERS[name] is getattr(module, name)
+            assert isinstance(cuda_build.COUNTERS[name].launches, int)
+
+
+def test_the_program_layer_imports_none_of_the_layers_it_runs():
+    """pipeline/programs.py reads the registry, so it imports no model and
+    no kernel wrapper: of ``ops``, only ``cuda_build``."""
+    import ast
+    import pathlib
+
+    tree = ast.parse(pathlib.Path(programs.__file__).read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported |= {f"{node.module}.{a.name}" for a in node.names}
+    port = sorted(m for m in imported if m.startswith("foundationpose_cpp_tpu_torch."))
+    assert "foundationpose_cpp_tpu_torch.ops.cuda_build" in port
+    for name in port:
+        assert not name.startswith("foundationpose_cpp_tpu_torch.models"), name
+        assert (not name.startswith("foundationpose_cpp_tpu_torch.ops")
+                or name == "foundationpose_cpp_tpu_torch.ops.cuda_build"), name
+
+
+def test_a_wrapper_registered_during_a_capture_shifts_no_other_count(fake_graphs, monkeypatch):
+    """The capture's counts are keyed by name: a wrapper first registered
+    while a program is captured counts from 0, and the others keep theirs."""
+    from foundationpose_cpp_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "COUNTERS", dict(cuda_build.COUNTERS))
+    calls = []
+
+    def late_kernel():
+        late_kernel.launches += 3
+
+    def fn(x):
+        calls.append(1)
+        if len(calls) == 2:  # the capture
+            cuda_build.counted(late_kernel)
+        if "late_kernel" in cuda_build.COUNTERS:
+            late_kernel()
+        return _counted_double(x)
+
+    program = programs.Program(fn, ("late",), "cpu")
+    before = render.render_views.launches
+    program(torch.ones(3))
+    assert program.launches_per_call == {"render_views": 2, "late_kernel": 3}
+    assert render.render_views.launches == before + 2 and late_kernel.launches == 0
+    program(torch.ones(3))
+    assert render.render_views.launches == before + 4 and late_kernel.launches == 3
+
+
 def test_failed_capture_raises_with_key(monkeypatch):
     monkeypatch.setattr(programs, "graphs_for", lambda device: FakeGraphs(fail=True))
     program = programs.Program(_counted_double, ("register", "cube", (120, 160), 1, False), "cpu")

@@ -8,7 +8,9 @@ same operations in the same order (``edge_coefficients_kernel_order`` pins
 that, bit for bit). Against the JAX package the tolerances are those of
 tests/test_torch_rasterize_tiled.py (ids agree on more than 99.5% of pixels,
 rtol = atol = 1e-4 where they agree) and of tests/test_torch_render.py
-(under 1% of pixels off by more than 2e-3).
+(under 1% of pixels off by more than 2e-3). The port's meshes keep only
+their real faces; against the JAX package's rasterizer they go on its padded
+faces with its validity mask.
 """
 
 import functools
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from foundationpose_cpp_tpu.config import FoundationPoseConfig
+from foundationpose_cpp_tpu.meshio import procedural as jproc
 from foundationpose_cpp_tpu.ops import rasterize as jras
 from foundationpose_cpp_tpu.ops.rasterize_pallas import rasterize_tpu
 from foundationpose_cpp_tpu.pipeline import renderer as jren
@@ -33,9 +36,9 @@ from tests.test_rasterize import _random_scene
 from tests.test_torch_render import CFG, CROP, _setup
 
 MESHES = {
-    "cube": lambda: tproc.textured_cube(size=0.1),
-    "house": lambda: tproc.textured_house(),
-    "sphere": lambda: tproc.textured_uv_sphere(radius=0.05, n_lat=12, n_lon=16),
+    "cube": lambda m: m.textured_cube(size=0.1),
+    "house": lambda m: m.textured_house(),
+    "sphere": lambda m: m.textured_uv_sphere(radius=0.05, n_lat=12, n_lon=16),
 }
 
 
@@ -48,14 +51,14 @@ def _same_raster(got: torch.Tensor, want: torch.Tensor) -> None:
 
 def _mesh_clip(name, h, w):
     """Two views of a mesh, the second partly out of the frame."""
-    mesh = MeshConstants.from_asset(MESHES[name](), device="cpu")
+    mesh = MeshConstants.from_asset(MESHES[name](tproc), device="cpu")
     K = torch.tensor([[150.0 * w / 160, 0, w / 2], [0, 150.0 * h / 120, h / 2], [0, 0, 1]])
     poses = torch.from_numpy(np.stack([tsyn.default_pose(0.35), tsyn.default_pose(0.25)]))
     poses[1, 0, 3] += 0.05
     bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]]).expand(2, 4)
     clip = ttf.transform_points_homogeneous(ttf.pose_clip_matrix(poses, bbox2d, K, h, w),
                                             mesh.vertices)
-    return clip, mesh.faces, mesh.face_valid
+    return clip, mesh.faces
 
 
 @pytest.mark.parametrize("name,h,w,region", [
@@ -64,12 +67,18 @@ def _mesh_clip(name, h, w):
 ])
 def test_scatter_matches_plain_rasterizer_on_meshes(name, h, w, region):
     """Large faces (cube, house) and small ones (sphere); h and w that are
-    no multiple of the region, and a region larger than the image."""
-    clip, faces, valid = _mesh_clip(name, h, w)
-    want = tras.rasterize(clip, faces, h, w, face_valid=valid)
-    got = rt.rasterize_scatter_plain(clip, faces, h, w, face_valid=valid, region=region)
+    no multiple of the region, and a region larger than the image. The JAX
+    package's rasterizer on its padded faces agrees."""
+    clip, faces = _mesh_clip(name, h, w)
+    want = tras.rasterize(clip, faces, h, w)
+    got = rt.rasterize_scatter_plain(clip, faces, h, w, region=region)
     assert (want[..., 3] > 0).float().mean() > 0.05
     _same_raster(got, want)
+    jmesh = jren.MeshConstants.from_asset(MESHES[name](jproc), texture_patch_k=0)
+    valid = np.asarray(jmesh.face_valid)
+    assert np.array_equal(np.asarray(jmesh.faces)[valid], faces.numpy())
+    _agree_with_jax(got.numpy(), np.asarray(jras.rasterize(
+        jnp.asarray(clip.numpy()), jmesh.faces, h, w, face_valid=jmesh.face_valid)))
 
 
 @pytest.mark.parametrize("seed,h,w,region", [(0, 16, 16, (64, 64)), (1, 33, 47, (16, 16)),
@@ -89,16 +98,22 @@ def test_scatter_random_soup_with_planted_ties(seed, h, w, region):
 
 
 def test_scatter_culls_faces_behind_the_camera_and_masked_faces():
+    """Faces with a corner behind the camera never win; the port on the first
+    21 faces agrees with the JAX package on all 24 with the last three
+    masked, as its padding masks them (unmasked, the last one wins pixels)."""
     clip, faces = _random_scene(n=1, v=16, f=24, seed=5)
     clip[0, faces[:6, 0], 3] = -0.5
-    valid = np.ones((24,), dtype=bool)
-    valid[6:9] = False
-    clip_t, faces_t, valid_t = (torch.from_numpy(a) for a in (clip, faces, valid))
-    want = tras.rasterize(clip_t, faces_t, 32, 40, face_valid=valid_t)
-    got = rt.rasterize_scatter_plain(clip_t, faces_t, 32, 40, face_valid=valid_t, region=(16, 16))
+    f = 21
+    clip_t, faces_t = torch.from_numpy(clip), torch.from_numpy(faces[:f])
+    want = tras.rasterize(clip_t, faces_t, 32, 40)
+    got = rt.rasterize_scatter_plain(clip_t, faces_t, 32, 40, region=(16, 16))
     _same_raster(got, want)
-    behind = [k + 1 for k in range(24) if (clip[0, faces[k], 3] <= 0).any() or not valid[k]]
-    assert len(behind) >= 9 and not np.isin(got[..., 3].numpy(), behind).any()
+    masked = jras.rasterize(jnp.asarray(clip), jnp.asarray(faces), 32, 40,
+                            face_valid=jnp.asarray(np.arange(24) < f))
+    _agree_with_jax(got.numpy(), np.asarray(masked))
+    assert (tras.rasterize(clip_t, torch.from_numpy(faces), 32, 40)[..., 3] > f).any()
+    behind = [k + 1 for k in range(f) if (clip[0, faces[k], 3] <= 0).any()]
+    assert len(behind) >= 6 and not np.isin(got[..., 3].numpy(), behind).any()
     assert (got[..., 3] > 0).any()
 
 
@@ -108,10 +123,14 @@ def test_scatter_every_face_culled_gives_zeros():
     got = rt.rasterize_scatter_plain(torch.from_numpy(clip), torch.from_numpy(faces), 20, 30,
                                      region=(16, 16))
     assert got.shape == (2, 20, 30, 4) and (got == 0).all()
-    none_valid = torch.zeros(faces.shape[0], dtype=torch.bool)
+    # the JAX package with every face masked, and the port on its padding
+    # rows (0, 0, 0) alone, unmasked: degenerate, they win no pixel
     clip2, _ = _random_scene(n=2, seed=6)
-    got = rt.rasterize_scatter_plain(torch.from_numpy(clip2), torch.from_numpy(faces), 20, 30,
-                                     face_valid=none_valid)
+    none_valid = jnp.zeros((faces.shape[0],), dtype=bool)
+    assert not np.asarray(jras.rasterize(jnp.asarray(clip2), jnp.asarray(faces), 20, 30,
+                                         face_valid=none_valid)).any()
+    pad_rows = torch.zeros((8, 3), dtype=torch.int32)
+    got = rt.rasterize_scatter_plain(torch.from_numpy(clip2), pad_rows, 20, 30)
     assert (got == 0).all()
 
 
@@ -168,29 +187,29 @@ def test_kernel_order_coefficients_equal_edge_coefficients(name):
     """The kernel builds each cross product component as one rounded product
     and one fused multiply-add, which is what torch.linalg.cross computes:
     bit for bit the coefficients of edge_coefficients."""
-    clip, faces, _ = _mesh_clip(name, 60, 80)
+    clip, faces = _mesh_clip(name, 60, 80)
     want, _ = tras.edge_coefficients(clip, faces)
     got = rt.edge_coefficients_kernel_order(clip, faces)
     assert torch.equal(got, want.reshape(got.shape))
 
 
 def test_handed_in_coefficients_take_the_built_ones_place():
-    clip, faces, valid = _mesh_clip("house", 60, 80)
-    coeffs, _ = rt.rasterize_prepass(clip, faces, 60, 80, valid)
-    want = tras.rasterize(clip, faces, 60, 80, face_valid=valid)
-    got = rt.rasterize_scatter_plain(clip, faces, 60, 80, face_valid=valid, coeffs=coeffs)
+    clip, faces = _mesh_clip("house", 60, 80)
+    coeffs, _ = rt.rasterize_prepass(clip, faces, 60, 80)
+    want = tras.rasterize(clip, faces, 60, 80)
+    got = rt.rasterize_scatter_plain(clip, faces, 60, 80, coeffs=coeffs)
     _same_raster(got, want)
     flipped = coeffs.clone()
     flipped[..., 9:12] = -flipped[..., 9:12]  # mirror every depth: another winner order
-    other = rt.rasterize_scatter_plain(clip, faces, 60, 80, face_valid=valid, coeffs=flipped)
+    other = rt.rasterize_scatter_plain(clip, faces, 60, 80, coeffs=flipped)
     assert (other[..., 3] != want[..., 3]).any()
 
 
 def test_face_pixel_tests_counts_the_scatter_walk():
     """The count chip_smoke prints beside the tests the data needs: the sum
     of the live bboxes' areas."""
-    clip, faces, valid = _mesh_clip("sphere", 48, 64)
-    _, bbox = rt.rasterize_prepass(clip, faces, 48, 64, valid)
+    clip, faces = _mesh_clip("sphere", 48, 64)
+    _, bbox = rt.rasterize_prepass(clip, faces, 48, 64)
     want = 0
     for x0, x1, y0, y1 in bbox.reshape(-1, 4).tolist():
         if x0 <= x1 and y0 <= y1:
@@ -238,8 +257,8 @@ def test_render_on_the_scatter_rasterizer_matches_jax(name):
                                              crop_window_h=CROP, crop_window_w=CROP)))
     scatter = functools.partial(rt.rasterize_scatter_plain, region=(20, 12))
     got = trender.render_views_plain(
-        tmesh.vertices, tmesh.normals, tmesh.texcoords, tmesh.faces, tmesh.face_valid,
-        tmesh.texture, torch.from_numpy(poses), torch.from_numpy(clipm), CROP, CROP,
+        tmesh.vertices, tmesh.normals, tmesh.texcoords, tmesh.faces, tmesh.texture,
+        torch.from_numpy(poses), torch.from_numpy(clipm), CROP, CROP,
         tmesh.diameter, CFG.min_depth, CFG.max_depth, CFG.w_ambient, CFG.w_diffuse,
         rasterizer=scatter,
     ).numpy()
@@ -274,9 +293,9 @@ def test_mesh_constants_default_to_the_card():
 def test_kernel_launchers_refuse_cpu_tensors():
     """The launch-alone entry points are for the card: a CPU tensor raises
     (only the wrappers route CPU tensors to the plain versions)."""
-    clip, faces, valid = _mesh_clip("cube", 16, 16)
+    clip, faces = _mesh_clip("cube", 16, 16)
     with pytest.raises(ValueError, match="unsupported device"):
-        rt.launch_rasterize(clip, faces, 16, 16, valid)
+        rt.launch_rasterize(clip, faces, 16, 16)
     before = rt.rasterize_tiled.launches
-    out = rt.rasterize_tiled(clip, faces, 16, 16, face_valid=valid)
+    out = rt.rasterize_tiled(clip, faces, 16, 16)
     assert rt.rasterize_tiled.launches == before and out.shape == (2, 16, 16, 4)

@@ -9,7 +9,9 @@ Heights that are not a multiple of 16, which the Pallas kernel refuses, go
 against the JAX XLA rasterizer with the same tolerance. The CUDA kernel's
 bbox rule (a face is tested only at the pixel centers inside its bbox, of
 which face_pixel_bbox is the plain version) is checked by rasterizing with
-that rule in plain tensor ops: the same raster, exactly.
+that rule in plain tensor ops: the same raster, exactly. The port's meshes
+keep only their real faces; the JAX package pads its faces to a multiple of
+128 with a validity mask, and the port on the real faces must agree with it.
 """
 
 import jax.numpy as jnp
@@ -17,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from foundationpose_cpp_tpu.meshio import procedural as jproc
 from foundationpose_cpp_tpu.ops import rasterize as jras
 from foundationpose_cpp_tpu.ops.rasterize_pallas import rasterize_tpu
+from foundationpose_cpp_tpu.pipeline import renderer as jren
 from foundationpose_cpp_tpu_torch.geometry import transforms as ttf
 from foundationpose_cpp_tpu_torch.meshio import procedural as tproc
 from foundationpose_cpp_tpu_torch.ops import rasterize as tras
@@ -28,12 +32,9 @@ from foundationpose_cpp_tpu_torch.utils import synthetic as tsyn
 from tests.test_rasterize import _random_scene
 
 
-def _port(clip, faces, h, w, face_valid=None):
+def _port(clip, faces, h, w):
     before = rt.rasterize_tiled.launches
-    out = rt.rasterize_tiled(
-        torch.from_numpy(clip), torch.from_numpy(faces), h, w,
-        face_valid=None if face_valid is None else torch.from_numpy(face_valid),
-    ).numpy()
+    out = rt.rasterize_tiled(torch.from_numpy(clip), torch.from_numpy(faces), h, w).numpy()
     assert rt.rasterize_tiled.launches == before  # no kernel on the CPU
     return out
 
@@ -58,16 +59,18 @@ def test_matches_pallas_interpret(n, v, f, seed, h, w, kw):
 
 
 def test_face_valid_mask_respected():
+    """The JAX package with its last four faces masked, as its padding masks
+    them, against the port on the faces before them; unmasked, some of the
+    four win pixels."""
     clip, faces = _random_scene(n=1, seed=3)
-    valid = np.ones((faces.shape[0],), dtype=bool)
-    valid[:4] = False
+    f = faces.shape[0] - 4
+    valid = np.arange(faces.shape[0]) < f
     want = np.asarray(rasterize_tpu(jnp.asarray(clip), jnp.asarray(faces), 16, 128,
                                     face_valid=jnp.asarray(valid), interpret=True,
                                     chunk=8, tile_rows=8))
-    got = _port(clip, faces, 16, 128, valid)
-    _agree(got, want)
-    for k in range(4):
-        assert not (got[..., 3] == float(k + 1)).any()
+    _agree(_port(clip, faces[:f], 16, 128), want)
+    assert not (want[..., 3] > f).any()
+    assert (_port(clip, faces, 16, 128)[..., 3] > f).any()
 
 
 def test_background_zero_and_behind_camera_cull():
@@ -83,9 +86,16 @@ def test_background_zero_and_behind_camera_cull():
     assert (got[bg] == 0).all()
 
 
+def _jax_faces(asset):
+    """The JAX package's faces of ``asset``, padded, and their validity."""
+    jmesh = jren.MeshConstants.from_asset(asset, texture_patch_k=0)
+    return np.asarray(jmesh.faces), np.asarray(jmesh.face_valid)
+
+
 def test_realistic_object_matches_pallas_interpret():
-    """A posed sphere through the clip-matrix path, padded faces included
-    (the scene of tests/test_rasterize_pallas.py)."""
+    """A posed sphere through the clip-matrix path (the scene of
+    tests/test_rasterize_pallas.py): the port on its real faces against
+    the JAX package on its padded faces."""
     sphere = tproc.textured_uv_sphere(radius=0.05, n_lat=8, n_lon=12)
     mesh = MeshConstants.from_asset(sphere, device="cpu")
     K = torch.tensor([[300.0, 0, 64], [0, 300.0, 64], [0, 0, 1]])
@@ -93,12 +103,13 @@ def test_realistic_object_matches_pallas_interpret():
     tfs = ttf.compute_crop_window_tf(poses, K, (32, 128), 1.2, mesh.diameter)
     clipm = ttf.pose_clip_matrix(poses, ttf.construct_bbox2d(tfs, 32, 128), K, 128, 128)
     clip = ttf.transform_points_homogeneous(clipm, mesh.vertices).numpy()
-    faces, valid = mesh.faces.numpy(), mesh.face_valid.numpy()
-    assert not valid.all()  # FACE_PAD rows
-    want = np.asarray(rasterize_tpu(jnp.asarray(clip), jnp.asarray(faces), 32, 128,
-                                    face_valid=jnp.asarray(valid), interpret=True,
+    faces = mesh.faces.numpy()
+    jfaces, jvalid = _jax_faces(jproc.textured_uv_sphere(radius=0.05, n_lat=8, n_lon=12))
+    assert not jvalid.all() and np.array_equal(jfaces[jvalid], faces)  # padding only in JAX
+    want = np.asarray(rasterize_tpu(jnp.asarray(clip), jnp.asarray(jfaces), 32, 128,
+                                    face_valid=jnp.asarray(jvalid), interpret=True,
                                     chunk=32, tile_rows=8))
-    _agree(_port(clip, faces, 32, 128, valid), want)
+    _agree(_port(clip, faces, 32, 128), want)
     assert (want[..., 3] > 0).mean() > 0.05
 
 
@@ -109,10 +120,10 @@ def test_height_not_a_multiple_of_16(h, w):
     _agree(_port(clip, faces, h, w), want)
 
 
-def _bbox_staged_raster(clip, faces, valid, h, w):
+def _bbox_staged_raster(clip, faces, h, w):
     """The kernel's rule in plain ops: a face covers a pixel only inside its
     bbox (pixels outside it are never tested against the face)."""
-    coeffs, bbox = rt.rasterize_prepass(clip, faces, h, w, valid)
+    coeffs, bbox = rt.rasterize_prepass(clip, faces, h, w)
     n, f = bbox.shape[:2]
     fxs, fys = tras.pixel_basis(h, w)
     fx, fy = fxs.repeat(h), fys.repeat_interleave(w)
@@ -134,20 +145,26 @@ def _bbox_staged_raster(clip, faces, valid, h, w):
 
 @pytest.mark.parametrize("name,h,w", [("house", 120, 160), ("sphere", 72, 96), ("cube", 45, 61)])
 def test_kernel_staging_rule_gives_the_same_raster(name, h, w):
-    asset = {"house": lambda: tproc.textured_house(),
-             "sphere": lambda: tproc.textured_uv_sphere(radius=0.05, n_lat=12, n_lon=16),
-             "cube": lambda: tproc.textured_cube(size=0.1)}[name]()
-    mesh = MeshConstants.from_asset(asset, device="cpu")
+    """The staged raster equals the plain one exactly, and the plain one on
+    the real faces agrees with the JAX package's on its padded faces."""
+    make = {"house": lambda m: m.textured_house(),
+            "sphere": lambda m: m.textured_uv_sphere(radius=0.05, n_lat=12, n_lon=16),
+            "cube": lambda m: m.textured_cube(size=0.1)}[name]
+    mesh = MeshConstants.from_asset(make(tproc), device="cpu")
     K = torch.tensor([[150.0 * w / 160, 0, w / 2], [0, 150.0 * h / 120, h / 2], [0, 0, 1]])
     poses = torch.from_numpy(np.stack([tsyn.default_pose(0.35), tsyn.default_pose(0.25)]))
     poses[1, 0, 3] += 0.05  # partly out of the frame
     bbox2d = torch.tensor([[0.0, 0.0, float(w), float(h)]]).expand(2, 4)
     clip = ttf.transform_points_homogeneous(ttf.pose_clip_matrix(poses, bbox2d, K, h, w),
                                             mesh.vertices)
-    want = tras.rasterize(clip, mesh.faces, h, w, face_valid=mesh.face_valid)
-    got = _bbox_staged_raster(clip, mesh.faces, mesh.face_valid, h, w)
+    want = tras.rasterize(clip, mesh.faces, h, w)
+    got = _bbox_staged_raster(clip, mesh.faces, h, w)
     assert (want[..., 3] > 0).float().mean() > 0.05
     torch.testing.assert_close(got, want[..., 3], rtol=0, atol=0)
+    jfaces, jvalid = _jax_faces(make(jproc))
+    assert np.array_equal(jfaces[jvalid], mesh.faces.numpy())
+    _agree(want.numpy(), np.asarray(jras.rasterize(jnp.asarray(clip.numpy()), jnp.asarray(jfaces),
+                                                   h, w, face_valid=jnp.asarray(jvalid))))
 
 
 def test_kernel_library_digest_covers_the_shared_header(tmp_path, monkeypatch):
