@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``foundationpose_cpp_tpu_torch/csrc``
 (one nvcc per source, all at once), holds each against its plain PyTorch
 version at the main paths' shapes (the probe kernel at its tool's two; the
 observed-crop kernel at Register's 252 views, Track's 1 and the mixed
-cell's 8, each with its own diameter) and
+cell's 8, each with its own diameter; the convolution epilogue at a net's
+nine conv outputs at 252 and at 1 pair) and
 times both (with the one PyTorch call
 that computes the same function, where there is one); the render and raster
 kernels also run on plane coefficients handed in from the plain version,
@@ -518,7 +519,7 @@ def reset_counts(kernels) -> None:
 
 def run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled, K):
     """Register + Track on the card at full width; returns launches and times."""
-    from foundationpose_cpp_tpu_torch.ops import crop
+    from foundationpose_cpp_tpu_torch.ops import crop, epilogue
     from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
 
     h, w = 480, 640
@@ -540,29 +541,27 @@ def run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled,
     model.register(rgb, depth, mask, "house")  # warm-up: cuDNN plans, allocator
     model.track(rgb, depth, gts[0], "house")
 
-    attention.mha_packed_qkv.launches = 0
-    render.render_views.launches = 0
-    crop.crop_observed.launches = 0
+    counted = (render.render_views, attention.mha_packed_qkv, crop.crop_observed,
+               epilogue.conv_epilogue)
+    reset_counts(counted)
     t0 = time.perf_counter()
     pose = model.register(rgb, depth, mask, "house")
     reg_ms = (time.perf_counter() - t0) * 1e3
-    counts = (render.render_views.launches, attention.mha_packed_qkv.launches,
-              crop.crop_observed.launches)
-    if counts != (2, 3, 2):
-        raise AssertionError(f"Register launched (render, attention, crop) = {counts}, "
-                             "want (2, 3, 2)")
+    counts = counts_of(counted)
+    if counts != (2, 3, 2, 18):
+        raise AssertionError(f"Register launched (render, attention, crop, epilogue) = {counts}, "
+                             "want (2, 3, 2, 18)")
     errs, track_ms = [], []
     for i, (rgb_i, depth_i, _) in enumerate(frames):
         t0 = time.perf_counter()
         pose_i = model.track(rgb_i, depth_i, pose if i == 0 else errs[-1][2], "house")
         track_ms.append((time.perf_counter() - t0) * 1e3)
         errs.append((rot_err_deg(np, pose_i, gts[i]), float(np.linalg.norm(pose_i[:3, 3] - gts[i][:3, 3])), pose_i))
-    counts = (render.render_views.launches, attention.mha_packed_qkv.launches,
-              crop.crop_observed.launches)
+    counts = counts_of(counted)
     n = len(frames)
-    if counts != (2 + n, 3 + n, 2 + n):
+    if counts != (2 + n, 3 + n, 2 + n, 18 + 9 * n):
         raise AssertionError(f"Register + {n} Track launched {counts}, "
-                             f"want {(2 + n, 3 + n, 2 + n)}")
+                             f"want {(2 + n, 3 + n, 2 + n, 18 + 9 * n)}")
 
     if not (pose.shape == (4, 4) and np.isfinite(pose).all()):
         raise AssertionError(f"Register pose is not a finite 4x4: {pose}")
@@ -597,7 +596,8 @@ def run_main_path(torch, np, fp, tproc, syn, attention, render, rasterize_tiled,
     log(f"register_ms={reg_med:.2f} (first timed {reg_ms:.2f}) register_fps={1e3 / reg_med:.2f} "
         f"track_ms={trk_med:.2f} track_fps={1e3 / trk_med:.2f}")
     return dict(render_launches=counts[0], attention_launches=counts[1],
-                crop_launches=counts[2], raster_launches=raster_launches, model=model,
+                crop_launches=counts[2], epilogue_launches=counts[3],
+                raster_launches=raster_launches, model=model,
                 house=house, frames=frames, gts=gts, pose=pose)
 
 
@@ -957,6 +957,27 @@ def scan_chain(np, tproc, tmp):
     return raw, final
 
 
+def output_digests(np, model, name, frames) -> dict:
+    """sha256 (16 hex digits) of a Register's best pose, of its poses and
+    scores (``register_with_scores`` on ``frames[0]``) and of three Track
+    poses chained from the best over ``frames[1:4]``: a change that keeps
+    the numerics gives its parent's digests."""
+    import hashlib
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+    rgb, depth, mask = frames[0]
+    best, poses, scores = model.register_with_scores(rgb, depth, mask, name)
+    out = {"register best": digest(best), "register poses": digest(poses),
+           "register scores": digest(scores)}
+    pose = best
+    for i, (rgb_i, depth_i, _) in enumerate(frames[1:4], 1):
+        pose = model.track(rgb_i, depth_i, pose, name)
+        out[f"track {i}"] = digest(pose)
+    return out
+
+
 def rotvec_matrix(np, axis, deg):
     """Rotation of deg degrees about axis (Rodrigues)."""
     k = np.asarray(axis, np.float64) / np.linalg.norm(axis)
@@ -1056,6 +1077,7 @@ def run_scan(torch, np, fp, tproc, syn, transforms, render, rasterize_tiled, swe
         f"deg register_ms={reg_ms:.2f}; track rot_err_deg: " + " ".join(f"{e:.2f}" for e in errs)
         + " | track_ms: " + " ".join(f"{t:.2f}" for t in track_ms))
     log(f"scan launches (packed attention, head-split attention, render, rasterize) = {counts}")
+    log("scan output digests: " + json.dumps(output_digests(np, model, "scan", seq)))
     if not np.isfinite(pose).all() or counts[0] == 0 or counts[2] == 0 \
             or counts[3] != len(frames) + len(seq) - 1:
         raise AssertionError(f"scan path launches {counts}")
@@ -1638,8 +1660,8 @@ def run_sharded(torch, np, fp, main, multi, K, tmp):
       config 5, 4 a rank, 5 chained steps, each instance under the
       multi-object gates, against ``track_step`` of the 8.
 
-    Each rank launches K2, K6 and the padded stem twice and K1 three times a
-    Register and issues three all-gathers and nothing else. Ranks sharing one card measure the
+    Each rank launches K2, K6 and the padded stem twice, K1 three times and
+    K7 18 times a Register and issues three all-gathers and nothing else. Ranks sharing one card measure the
     split's correctness and overhead, not scaling."""
     import dataclasses
 
@@ -1688,7 +1710,8 @@ def run_sharded(torch, np, fp, main, multi, K, tmp):
         wall = time.perf_counter() - t0
         backend = "nccl" if n <= torch.cuda.device_count() else "gloo"
         check_ranks(res, backend, {"render_views": 2, "mha_packed_qkv": 3, "padded_stem": 2,
-                                   "crop_observed": 2}, 3, f"sharded W={n}", graphed=n == 1)
+                                   "crop_observed": 2, "conv_epilogue": 18}, 3,
+                    f"sharded W={n}", graphed=n == 1)
         a, (task,) = res[0]["arrays"], res[0]["meta"]["tasks"]
         for r in res[1:]:
             if not all(np.array_equal(v, a[k]) for k, v in r["arrays"].items()
@@ -1766,8 +1789,8 @@ def run_sharded(torch, np, fp, main, multi, K, tmp):
         tmp / "track", timeout=300)
     wall = time.perf_counter() - t0
     check_ranks(res, "nccl" if torch.cuda.device_count() >= 2 else "gloo",
-                {"render_views": 5, "mha_packed_qkv": 5, "padded_stem": 5, "crop_observed": 5}, 5,
-                "sharded track_batch")
+                {"render_views": 5, "mha_packed_qkv": 5, "padded_stem": 5, "crop_observed": 5,
+                 "conv_epilogue": 45}, 5, "sharded track_batch")
     a = res[0]["arrays"]
     rot = [metrics.rotation_error_deg_sym(p, g, cube.symmetries) for p, g in zip(a["t0_poses"], gts)]
     trans = [float(np.linalg.norm(p[:3, 3] - g[:3, 3])) for p, g in zip(a["t0_poses"], gts)]
@@ -2290,6 +2313,76 @@ def check_crop(torch, np, transforms, crop):
     return rows
 
 
+# a net's nine convs at n pairs: (name, output shape, whether a residual is
+# added) in the forward's order
+def net_convs(n: int) -> list:
+    return [("stem", (2 * n, 64, 80, 80), False), ("conv1", (2 * n, 128, 40, 40), False),
+            ("res.conv1", (2 * n, 128, 40, 40), False), ("res.conv2", (2 * n, 128, 40, 40), True),
+            ("res0.conv1", (n, 256, 40, 40), False), ("res0.conv2", (n, 256, 40, 40), True),
+            ("conv", (n, 512, 20, 20), False), ("res1.conv1", (n, 512, 20, 20), False),
+            ("res1.conv2", (n, 512, 20, 20), True)]
+
+
+def check_epilogue(torch, epilogue):
+    """The convolution epilogue kernel (K7) at a net's nine conv outputs at
+    N=252 (Register's shapes) and at N=1 (Track's), bf16 with the ReLU and,
+    where the nets add one, the residual: against its plain version bit for
+    bit (NaN and -0.0 planted), then the kernel's time (at N=1 also queued
+    behind other work), the plain version's, the sequence the nets ran
+    before it (``add_`` of the bias, ``residual + y``, ``F.relu``: the
+    library's time) and the bound: y read and written, the residual read, at
+    3.35 TB/s. The sums over the nine are a net's; a Register runs two."""
+    import torch.nn.functional as F
+
+    def parent(y, bias, residual):
+        y = y.add_(bias.reshape(1, -1, 1, 1))
+        return F.relu(y if residual is None else residual + y)
+
+    rows = []
+    for n in (252, 1):
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, queued_ms=0.0)
+        for name, shape, with_residual in net_convs(n):
+            gen = torch.Generator(device="cuda").manual_seed(shape[1] + n)
+            y = (torch.randn(shape, generator=gen, device="cuda") * 4).to(torch.bfloat16)
+            y = y.contiguous(memory_format=torch.channels_last)
+            y.permute(0, 2, 3, 1).view(-1)[::997] = float("nan")
+            y.permute(0, 2, 3, 1).view(-1)[5::991] = -0.0
+            bias = torch.randn((shape[1],), generator=gen, device="cuda").to(torch.bfloat16)
+            residual = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                        .contiguous(memory_format=torch.channels_last)
+                        if with_residual else None)
+            want = epilogue.conv_epilogue_plain(y.clone(), bias, residual)
+            got = epilogue.conv_epilogue(y.clone(), bias, residual)
+            torch.cuda.synchronize()
+            off = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            if off:
+                raise AssertionError(f"conv_epilogue {name} {shape}: {off} values off its plain "
+                                     "version")
+            # each timed call adds the bias again to its own output: the
+            # values drift, the bytes and the work do not
+            k_ms = cuda_ms(torch, lambda: epilogue.conv_epilogue(got, bias, residual), 20)
+            q_ms = (cuda_ms_queued(torch, lambda: epilogue.conv_epilogue(got, bias, residual), 20)
+                    if n == 1 else k_ms)
+            p_ms = cuda_ms(torch, lambda: epilogue.conv_epilogue_plain(want, bias, residual), 5)
+            l_ms = cuda_ms(torch, lambda: parent(y, bias, residual), 5)
+            moved = 2 * nbytes(y) + (nbytes(residual) if with_residual else 0)
+            b_ms, b_by = bound(moved, 0.0, F32_FLOPS)
+            log(f"conv_epilogue N={n} {name} {shape} residual={with_residual}: values off {off} "
+                f"(bit for bit) kernel_ms={k_ms:.4f} queued_ms={q_ms:.4f} plain_ms={p_ms:.4f} "
+                f"library_ms(add_, add, relu)={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+                f"{moved} bytes)")
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                           ("bound_ms", b_ms), ("queued_ms", q_ms)):
+                total[key] += v
+            del y, got, want, residual
+        log(f"conv_epilogue N={n}, a net's nine: " + " ".join(
+            f"{k}={v:.4f}" for k, v in total.items()) + f" ({total['bound_ms'] / total['ms']:.1%}"
+            " of the bound)")
+        rows.append(dict(total, name=f"net N={n}", err=0.0, bound_by="bytes"))
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_profile(torch, np, attention, render, probe_grid):
     """The perf harnesses at the published widths (N=252, crop 160): the
     probe tool as it is, then profile_nets, bench_stem, bench_attn (both
@@ -2373,7 +2466,7 @@ def main() -> int:
         from foundationpose_cpp_tpu_torch.geometry import transforms
         from foundationpose_cpp_tpu_torch.meshio import procedural as tproc
         from foundationpose_cpp_tpu_torch.ops import (
-            attention, crop, cuda_build, probe_grid, rasterize_tiled, render,
+            attention, crop, cuda_build, epilogue, probe_grid, rasterize_tiled, render,
         )
         from foundationpose_cpp_tpu_torch.tools import raster_region_sweep as sweep
         from foundationpose_cpp_tpu_torch.utils import profiling
@@ -2411,6 +2504,7 @@ def main() -> int:
     raster_rows = phase("K4", check_rasterize, torch, transforms, rasterize_tiled, render, sweep)
     probe_rows = phase("K5", check_probe_grid, torch, probe_grid)
     crop_rows = phase("K6", check_crop, torch, np, transforms, crop)
+    epilogue_rows = phase("K7", check_epilogue, torch, epilogue)
     launches = phase("main path", run_main_path, torch, np, fp, tproc, syn, attention, render,
                      rasterize_tiled, K)
     # the serving paths around Track and Register, each with the counts of
@@ -2479,6 +2573,11 @@ def main() -> int:
              replaces="none (the JAX package's gather warps, foundationpose_cpp_tpu/ops/warp.py)",
              launches=launches["crop_launches"], max_abs_err=max(r["err"] for r in crop_rows),
              **row(dict(crop_rows[0], library_ms=None))),
+        dict(name="conv_epilogue", route="cuda",
+             source="foundationpose_cpp_tpu_torch/csrc/epilogue.cu",
+             replaces="none (XLA fuses it into the JAX package's convolutions)",
+             launches=launches["epilogue_launches"],
+             max_abs_err=max(r["err"] for r in epilogue_rows), **row(epilogue_rows[0])),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

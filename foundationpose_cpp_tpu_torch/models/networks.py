@@ -20,7 +20,10 @@ and outputs are NHWC at the public boundary, like the JAX functions; inside,
 ``permute(0, 3, 1, 2)`` gives the convolutions a channels-last NCHW view with
 no copy. On the card in a 16-bit dtype the stem writes the crops into a
 buffer of 16 zero-padded channels instead (``padded_stem``), which cuDNN
-runs on its tensor cores. Convs and the qkv/proj/FFN projections run in the input dtype
+runs on its tensor cores; in bf16 there each conv also runs without its bias,
+which one kernel adds, with the residual and the ReLU that follow, in
+place (``conv_act``, ``ops.epilogue.conv_epilogue``). Convs and the
+qkv/proj/FFN projections run in the input dtype
 (bf16 on the card, f32 accumulation in cuDNN and cuBLAS); LayerNorm
 statistics and the heads run in f32. The attention core is a CUDA kernel
 on the card, routed as the JAX function routes its Pallas kernels: a head
@@ -43,7 +46,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from foundationpose_cpp_tpu_torch.ops import attention, cuda_build
+from foundationpose_cpp_tpu_torch.ops import attention, cuda_build, epilogue
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +110,35 @@ class Conv(nn.Module):
                         self.stride, self.padding)
 
 
+def fuses_epilogue(x: torch.Tensor, conv: Conv) -> bool:
+    """Whether ``conv`` over ``x`` takes the epilogue kernel: on the card, in
+    bf16, with nothing for autograd to record (grad mode off, or neither x
+    nor the conv's parameters requiring a gradient). Elsewhere (the CPU,
+    float32, the trainers) the conv keeps its bias and PyTorch's residual
+    add and ReLU run after it, as in the JAX package's layer order."""
+    return (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled() and (
+                x.requires_grad or conv.weight.requires_grad or conv.bias.requires_grad)))
+
+
+def conv_act(conv: Conv, x: torch.Tensor, residual: torch.Tensor | None = None,
+             weight: torch.Tensor | None = None) -> torch.Tensor:
+    """relu(residual + conv(x)) in x's dtype, the residual optional;
+    ``weight`` in x's dtype convolves in place of the conv's own
+    (the padded stem's). Where ``fuses_epilogue`` holds, the conv runs
+    without its bias and ``conv_epilogue`` adds the bias, the residual and
+    the ReLU in one pass over its output, with the same roundings."""
+    w = conv.weight.to(x.dtype) if weight is None else weight
+    b = conv.bias.to(x.dtype)
+    if fuses_epilogue(x, conv):
+        y = F.conv2d(x, w, None, conv.stride, conv.padding)
+        return epilogue.conv_epilogue(y, b, residual)
+    y = F.conv2d(x, w, b, conv.stride, conv.padding)
+    if residual is not None:
+        y = residual + y
+    return F.relu(y)
+
+
 # The stem's input channels are padded with zeros to a multiple of this on
 # the padded route (``padded_stem``): cuDNN runs a bf16 channels-last conv
 # on 6 channels with its generic engine and one on 16 as a tensor-core
@@ -137,15 +169,16 @@ def _zeros(shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tens
 @cuda_build.counted
 def padded_stem(conv: Conv, render_input: torch.Tensor, transf_input: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
-    """The stem ``conv`` over the siamese batch [render_input; transf_input]
-    (each (N, H, W, C) NHWC) with the channels zero-padded to a multiple of
-    ``STEM_CHANNEL_MULTIPLE``: the crops are written, cast to ``dtype``,
-    into the channel slice [..., :C] of one zeroed (2N, H, W, Cp) buffer
-    (the copy the direct route's cat and cast make), and the (O, C, k, k)
-    weight is padded to (O, Cp, k, k) here, in channels-last memory, so a
-    ``load_state_dict`` after a capture still reaches it and gradients reach
-    the parameter. The padded channels are zero in both, so the sum is the
-    direct route's. (2N, O, H/2, W/2) in ``dtype``, channels-last."""
+    """The stem ``conv`` and its ReLU over the siamese batch [render_input;
+    transf_input] (each (N, H, W, C) NHWC) with the channels zero-padded to
+    a multiple of ``STEM_CHANNEL_MULTIPLE``: the crops are written, cast to
+    ``dtype``, into the channel slice [..., :C] of one zeroed (2N, H, W, Cp)
+    buffer (the copy the direct route's cat and cast make), and the
+    (O, C, k, k) weight is padded to (O, Cp, k, k) here, in channels-last
+    memory, so a ``load_state_dict`` after a capture still reaches it and
+    gradients reach the parameter. The padded channels are zero in both, so
+    the sum is the direct route's. (2N, O, H/2, W/2) in ``dtype``,
+    channels-last, through ``conv_act``."""
     n, h, w, c = render_input.shape
     cp = -(-c // STEM_CHANNEL_MULTIPLE) * STEM_CHANNEL_MULTIPLE
     both = torch.zeros((2 * n, h, w, cp), dtype=dtype, device=render_input.device)
@@ -154,23 +187,22 @@ def padded_stem(conv: Conv, render_input: torch.Tensor, transf_input: torch.Tens
     o, _, kh, kw = conv.weight.shape
     pad = _zeros((o, kh, kw, cp - c), dtype, render_input.device)
     weight = torch.cat([conv.weight.to(dtype).permute(0, 2, 3, 1), pad], dim=-1)
-    out = F.conv2d(both.permute(0, 3, 1, 2), weight.permute(0, 3, 1, 2), conv.bias.to(dtype),
-                   conv.stride, conv.padding)
+    out = conv_act(conv, both.permute(0, 3, 1, 2), weight=weight.permute(0, 3, 1, 2))
     padded_stem.launches += 1
     return out
 
 
 def stem(conv: Conv, render_input: torch.Tensor, transf_input: torch.Tensor,
          dtype: torch.dtype) -> torch.Tensor:
-    """The stem ``conv`` over the siamese batch [render_input; transf_input]
-    (each (N, H, W, C) NHWC) in ``dtype``, as ``_Backbone.forward`` runs it:
-    ``padded_stem`` where ``pads_stem`` says so, else one concatenation and
-    cast (torch.cat([A, B], 0) in the original) and the conv on its
-    channels-last NCHW view."""
+    """The stem ``conv`` and its ReLU over the siamese batch [render_input;
+    transf_input] (each (N, H, W, C) NHWC) in ``dtype``, as
+    ``_Backbone.forward`` runs it: ``padded_stem`` where ``pads_stem`` says
+    so, else one concatenation and cast (torch.cat([A, B], 0) in the
+    original) and the conv on its channels-last NCHW view."""
     if pads_stem(render_input, dtype):
         return padded_stem(conv, render_input, transf_input, dtype)
     both = torch.cat([render_input, transf_input], dim=0).to(dtype).permute(0, 3, 1, 2)
-    return conv(both)
+    return conv_act(conv, both)
 
 
 def conv0_s2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -207,7 +239,7 @@ class ResBlock(nn.Module):
         self.conv2 = Conv(ch, ch, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(x + self.conv2(F.relu(self.conv1(x))))
+        return conv_act(self.conv2, conv_act(self.conv1, x), residual=x)
 
 
 class Linear(nn.Module):
@@ -331,13 +363,13 @@ class _Backbone(nn.Module):
         n = render_input.shape[0]
         a = self.encodeA
         # siamese encode over a 2N batch
-        h = F.relu(stem(a["conv0"], render_input, transf_input, dtype))
-        h = F.relu(a["conv1"](h))
+        h = stem(a["conv0"], render_input, transf_input, dtype)
+        h = conv_act(a["conv1"], h)
         feats = a["res"](h)
         ab = torch.cat([feats[:n], feats[n:]], dim=1)  # channel concat
         p = self.encodeAB
         ab = p["res0"](ab)
-        ab = F.relu(p["conv"](ab))
+        ab = conv_act(p["conv"], ab)
         ab = p["res1"](ab)  # (N, D, crop/8, crop/8)
         d = ab.shape[1]
         # token t = y * W + x, as the JAX NHWC reshape

@@ -43,7 +43,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("attention", "render", "rasterize", "probe_grid", "crop")
+KERNEL_SOURCES = ("attention", "render", "rasterize", "probe_grid", "crop", "epilogue")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -75,7 +75,7 @@ def layer_variant(layer: networks.EncoderLayer, x: torch.Tensor, variant) -> tor
 def encode_ab_concat(ab, fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
     """encodeAB on concat(A, B), as the nets run it: (N, C, S, S) x2 -> (N, D, S/2, S/2)."""
     x = ab["res0"](torch.cat([fa, fb], dim=1))
-    return ab["res1"](F.relu(ab["conv"](x)))
+    return ab["res1"](networks.conv_act(ab["conv"], x))
 
 
 def encode_ab_split(ab, fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
@@ -86,7 +86,7 @@ def encode_ab_split(ab, fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
     h = F.relu(F.conv2d(fa, w1[:, :c], None, 1, 1) + F.conv2d(fb, w1[:, c:], b1, 1, 1))
     h = res0.conv2(h)
     x = F.relu(torch.cat([fa, fb], dim=1) + h)  # the skip still needs it
-    return ab["res1"](F.relu(ab["conv"](x)))
+    return ab["res1"](networks.conv_act(ab["conv"], x))
 
 
 @torch.inference_mode()

@@ -10,6 +10,8 @@ Counterpart of the JAX package's ``tools/bench_stem.py``, with its labels:
                the crops reach the nets, written into the nets' input
                (on the card in bf16, the padded route: a zeroed buffer of
                ``networks.STEM_CHANNEL_MULTIPLE`` channels), then the conv
+               and its ReLU (on the card in bf16, the conv without its
+               bias and the epilogue kernel)
   direct       the production conv (``RefineNet.encodeA["conv0"]``: 7x7,
                stride 2, torch pad 3) on an input already cast
   C padded     the same, its input's channels padded with zeros to 8, 16
@@ -133,12 +135,16 @@ def variants(weight: torch.Tensor, bias: torch.Tensor) -> dict:
 
 def excess(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor, rtol: float = 0.0) -> dict:
     """max of |variant - direct| - rtol |direct| over one (N, C, H, W) batch,
-    per label (with rtol 0, the max |d|)."""
+    per label (with rtol 0, the max |d|); "as served" against the direct
+    stem's ReLU, which the served stem ends in."""
     table = variants(weight, bias)
-    want = table["direct 7x7 s2"][1](x).float()
-    return {label: float(((stem(x if prepare is None else prepare(x)).float() - want).abs()
-                          - rtol * want.abs()).max())
-            for label, (prepare, stem) in table.items()}
+    direct = table["direct 7x7 s2"][1](x).float()
+    out = {}
+    for label, (prepare, stem) in table.items():
+        want = direct.clamp_min(0.0) if label == "as served" else direct
+        got = stem(x if prepare is None else prepare(x)).float()
+        out[label] = float(((got - want).abs() - rtol * want.abs()).max())
+    return out
 
 
 @torch.inference_mode()

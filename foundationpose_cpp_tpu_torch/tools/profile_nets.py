@@ -97,12 +97,14 @@ def run(device=None, iters: int = 8, n: int = 252, dtype: str = "f32",
     a, ab = net.encodeA, net.encodeAB
 
     def stem(x, y):  # as the refiner's forward runs it, the crops' write included
-        return F.relu(networks.stem(a["conv0"], x, y, cdt))
+        return networks.stem(a["conv0"], x, y, cdt)
 
-    timed("encodeA (2N batch)", lambda x, y: a["res"](F.relu(a["conv1"](stem(x, y)))),
-          crops_a, crops_b)
+    def conv1(x, y):
+        return networks.conv_act(a["conv1"], stem(x, y))
+
+    timed("encodeA (2N batch)", lambda x, y: a["res"](conv1(x, y)), crops_a, crops_b)
     timed("conv0 7x7 s2 (6->64)", stem, crops_a, crops_b)
-    timed("+conv1 3x3 s2 (64->128)", lambda x, y: F.relu(a["conv1"](stem(x, y))), crops_a, crops_b)
+    timed("+conv1 3x3 s2 (64->128)", conv1, crops_a, crops_b)
 
     # encodeAB and the transformer from features made here
     feats_a = uniform(gen, (iters, n, s2, s2, cfg.width2), cdt)
@@ -111,7 +113,8 @@ def run(device=None, iters: int = 8, n: int = 252, dtype: str = "f32",
     def concat(fa, fb):
         return torch.cat([nchw(fa), nchw(fb)], dim=1)
 
-    timed("encodeAB", lambda fa, fb: ab["res1"](F.relu(ab["conv"](ab["res0"](concat(fa, fb))))),
+    timed("encodeAB",
+          lambda fa, fb: ab["res1"](networks.conv_act(ab["conv"], ab["res0"](concat(fa, fb)))),
           feats_a, feats_b)
     timed("res0 (2x 3x3 256ch @40)", lambda fa, fb: ab["res0"](concat(fa, fb)), feats_a, feats_b)
     del feats_a, feats_b

@@ -481,8 +481,9 @@ def test_sharded_register_on_one_rank_equals_register_step(card, tmp_path):
     weights. At one rank the Register is a captured program: its warm-up
     runs it and captures it (three all-gathers each), its counted run is a
     replay under set_sync_debug_mode("error") that issues no collective
-    from Python, launches K2, K6 and the padded stem twice and K1 three
-    times (no other counted wrapper), equals the program's function run
+    from Python, launches K2, K6 and the padded stem twice, K1 three times
+    and K7 (the conv epilogue) 18 times (no other counted wrapper), equals
+    the program's function run
     eagerly bit for bit and register_step at atol 1e-6."""
     from foundationpose_cpp_tpu_torch.geometry import icosphere
     from foundationpose_cpp_tpu_torch.parallel import ranks
@@ -504,7 +505,7 @@ def test_sharded_register_on_one_rank_equals_register_step(card, tmp_path):
     assert task["collectives"] == {} and task["warmup_collectives"] == {"all_gather": 6}
     assert [p["key"] for p in task["programs"]] == [["sharded_register", 252, [480, 640], 1]]
     assert task["launches"] == {"render_views": 2, "mha_packed_qkv": 3, "padded_stem": 2,
-                                "crop_observed": 2}
+                                "crop_observed": 2, "conv_epilogue": 18}
     for name in ("best", "poses", "scores", "ok"):
         np.testing.assert_array_equal(a[f"t0_{name}"], a[f"t0_eager_{name}"])
     for name in ("best", "poses", "scores"):
@@ -517,7 +518,7 @@ def test_sharded_track_on_one_rank_is_a_program(card, tmp_path):
     of two instances of the house: the first call runs the step and
     captures it (one all-gather each), the second and the counted run's
     two are replays that issue none from Python and launch K1, K2, K6 and
-    the padded stem once a step; the poses equal the program's function run eagerly bit for bit
+    the padded stem once a step and K7 9 times; the poses equal the program's function run eagerly bit for bit
     and track_step's at atol 1e-6."""
     from foundationpose_cpp_tpu_torch.parallel import ranks
 
@@ -537,7 +538,7 @@ def test_sharded_track_on_one_rank_is_a_program(card, tmp_path):
     assert task["collectives"] == {} and task["warmup_collectives"] == {"all_gather": 2}
     assert [p["key"] for p in task["programs"]] == [["sharded_track_batch", 2, [480, 640], 1]]
     assert task["launches"] == {"render_views": 2, "mha_packed_qkv": 2, "padded_stem": 2,
-                                "crop_observed": 2}
+                                "crop_observed": 2, "conv_epilogue": 18}
     np.testing.assert_array_equal(a["t0_poses"], a["t0_eager_poses"])
     np.testing.assert_allclose(a["t0_poses"], a["t0_ref_poses"], rtol=0, atol=1e-6)
 
@@ -615,7 +616,8 @@ def test_track_graph_chain_equals_eager_chain(card):
     assert program.captured and program.launches_per_call == {"mha_packed_qkv": 1,
                                                               "render_views": 1,
                                                               "padded_stem": 1,
-                                                              "crop_observed": 1}
+                                                              "crop_observed": 1,
+                                                              "conv_epilogue": 9}
     frame = [torch.from_numpy(a).to(card) for a in (rgb, depth)]
     pose, eager = torch.from_numpy(gt).to(card), torch.from_numpy(gt).to(card)
     before = (render.render_views.launches, attention.mha_packed_qkv.launches)
@@ -644,7 +646,8 @@ def test_register_graph_equals_eager(card):
     assert program.captured and program.launches_per_call == {"mha_packed_qkv": 3,
                                                               "render_views": 2,
                                                               "padded_stem": 2,
-                                                              "crop_observed": 2}
+                                                              "crop_observed": 2,
+                                                              "conv_epilogue": 18}
     assert first[1].data_ptr() != second[1].data_ptr()
     frame = [torch.from_numpy(a).to(card) for a in (rgb, depth, mask)]
     with torch.inference_mode():

@@ -7,7 +7,10 @@ Full width with the trained npz weights cast to f32, on N=4 pairs: rtol 1e-3,
 atol 1e-4 (five more layers of 512-wide f32 sums in another order). Both
 weight routes (JAX tree -> params_from_jax, npz -> load_npz) give identical
 tensors. The stem's padded route, forced on the CPU in f32, gives the direct
-conv's outputs and gradients within 1e-5, and is not taken on the CPU.
+conv's outputs and gradients within 1e-5, and is not taken on the CPU. The
+convolution epilogue's route (``networks.conv_act``) is taken only on the
+card in bf16 with nothing for autograd to record; forced on the CPU in
+bf16, it gives the direct forward bit for bit.
 """
 
 import pathlib
@@ -22,6 +25,7 @@ import torch
 from foundationpose_cpp_tpu.models import checkpoint as jckpt
 from foundationpose_cpp_tpu.models import networks as jnet
 from foundationpose_cpp_tpu_torch.models import convert_jax, networks
+from foundationpose_cpp_tpu_torch.ops import epilogue
 
 WDIR = pathlib.Path(__file__).resolve().parents[1] / "weights"
 SMALL = jnet.NetConfig(
@@ -103,6 +107,9 @@ def test_both_weight_routes_identical(kind, count):
 # must give the direct conv's sums.
 
 def _stem_case(seed, n=3, crop=32, cout=16):
+    """A stem conv and its inputs, the bias shifted so that every sum is at
+    least 1: the stem's ReLU is then the identity, and every output and
+    gradient of the padded route is compared."""
     gen = torch.Generator().manual_seed(seed)
     conv = networks.Conv(6, cout, 7, stride=2)
     with torch.no_grad():
@@ -110,11 +117,15 @@ def _stem_case(seed, n=3, crop=32, cout=16):
         conv.bias.copy_(torch.randn(cout, generator=gen))
     a = torch.rand((n, crop, crop, 6), generator=gen)
     b = torch.rand((n, crop, crop, 6), generator=gen)
+    with torch.no_grad():
+        conv.bias += 1.0 - conv(torch.cat([a, b], dim=0).permute(0, 3, 1, 2)).amin()
     return conv, a, b
 
 
 def _direct_stem(conv, a, b):
-    return conv(torch.cat([a, b], dim=0).permute(0, 3, 1, 2))
+    """The stem conv and its ReLU, as ``_Backbone.forward`` ran them before
+    the stem routes took the ReLU in."""
+    return torch.relu(conv(torch.cat([a, b], dim=0).permute(0, 3, 1, 2)))
 
 
 @pytest.mark.parametrize("seed,n,crop", [(0, 3, 32), (1, 1, 160), (2, 4, 24)])
@@ -128,6 +139,7 @@ def test_padded_stem_equals_the_direct_conv(seed, n, crop):
     assert got.shape == want.shape == (2 * n, 16, crop // 2, crop // 2)
     assert got.dtype == torch.float32
     assert got.is_contiguous(memory_format=torch.channels_last)
+    assert want.amin() > 0.5
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
@@ -204,3 +216,73 @@ def test_state_dict_keys_and_shapes_are_the_checkpoints(kind):
     assert {k: tuple(v.shape) for k, v in state.items()} == \
         {k: tuple(v.shape) for k, v in ckpt.items()}
     assert state["encodeA.conv0.weight"].shape == (64, 6, 7, 7)
+
+
+# The convolution epilogue's route (``networks.conv_act``): on the card in
+# bf16 each conv runs without its bias and ``ops.epilogue.conv_epilogue``
+# adds it, with the residual and the ReLU. Forced here in bf16, the wrapper
+# runs its plain version, which must give the direct forward's bits.
+
+def _epilogue_spy(monkeypatch):
+    """Count the calls that reach ``epilogue.conv_epilogue`` from the nets."""
+    calls = []
+    wrapper = epilogue.conv_epilogue
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return wrapper(*args, **kwargs)
+    monkeypatch.setattr(epilogue, "conv_epilogue", spy)
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["refiner", "scorer"])
+def test_forced_epilogue_route_through_a_net_equals_the_direct_forward(kind, monkeypatch):
+    cfg = networks.NetConfig(width1=8, width2=16, embed_dim=64, num_heads=4, crop_hw=32,
+                             cross_attention=kind == "scorer")
+    net = networks.init_net(kind, cfg, seed=5).cast_matmul_weights(torch.bfloat16)
+    a, b = (torch.from_numpy(x) for x in _inputs(3, 32, 6))
+    calls = _epilogue_spy(monkeypatch)
+    with torch.no_grad():
+        want = net(a, b)
+        assert calls == []
+        monkeypatch.setattr(networks, "fuses_epilogue", lambda x, conv: True)
+        got = net(a, b)
+    # stem, conv1, two a ResBlock (three of them), the encodeAB conv
+    assert [tuple(s) for s in calls] == [(6, 8, 16, 16), (6, 16, 8, 8), (6, 16, 8, 8),
+                                         (6, 16, 8, 8), (3, 32, 8, 8), (3, 32, 8, 8),
+                                         (3, 64, 4, 4), (3, 64, 4, 4), (3, 64, 4, 4)]
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("device,dtype,channels,grad_mode,x_grad,param_grad,fused", [
+    ("cuda", torch.bfloat16, 64, False, False, True, True),
+    ("cuda", torch.float16, 64, False, False, True, False),
+    ("cuda", torch.bfloat16, 512, True, False, False, True),
+    ("cuda", torch.bfloat16, 64, True, False, True, False),
+    ("cuda", torch.bfloat16, 64, True, True, False, False),
+    ("cuda", torch.bfloat16, 12, False, False, False, True),
+    ("cuda", torch.float32, 64, False, False, False, False),
+    ("cpu", torch.bfloat16, 64, False, False, False, False),
+    ("cpu", torch.float32, 64, False, False, False, False),
+])
+def test_epilogue_route_engages_on_the_card_in_16_bit_without_autograd(
+        device, dtype, channels, grad_mode, x_grad, param_grad, fused):
+    x = types.SimpleNamespace(device=torch.device(device), dtype=dtype, requires_grad=x_grad)
+    conv = networks.Conv(8, channels, 3).requires_grad_(param_grad)
+    with torch.set_grad_enabled(grad_mode):
+        assert networks.fuses_epilogue(x, conv) is fused
+
+
+@pytest.mark.parametrize("kind", ["refiner", "scorer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_route_not_taken_on_the_cpu(kind, dtype, monkeypatch):
+    cfg = networks.NetConfig(width1=8, width2=16, embed_dim=64, num_heads=4, crop_hw=32,
+                             cross_attention=kind == "scorer")
+    net = networks.init_net(kind, cfg, seed=6).cast_matmul_weights(dtype)
+    a, b = (torch.from_numpy(x) for x in _inputs(2, 32, 7))
+    calls = _epilogue_spy(monkeypatch)
+    with torch.no_grad():
+        out = net(a, b)
+    assert calls == []
+    assert all(torch.isfinite(v).all() for v in out.values())

@@ -240,7 +240,7 @@ def test_launch_counters_count_per_call(fake_graphs):
 
 
 COUNTED = {"mha_packed_qkv", "mha_whole_head", "render_views", "rasterize_tiled", "probe_grid",
-           "crop_observed", "padded_stem"}
+           "crop_observed", "padded_stem", "conv_epilogue"}
 
 
 def test_the_registry_holds_the_counted_wrappers():
@@ -248,11 +248,11 @@ def test_the_registry_holds_the_counted_wrappers():
     registers itself where it is defined, under its own name."""
     from foundationpose_cpp_tpu_torch.models import networks
     from foundationpose_cpp_tpu_torch.ops import (
-        attention, crop, cuda_build, probe_grid, rasterize_tiled,
+        attention, crop, cuda_build, epilogue, probe_grid, rasterize_tiled,
     )
 
     assert set(cuda_build.COUNTERS) == COUNTED
-    for module in (attention, render, rasterize_tiled, probe_grid, crop, networks):
+    for module in (attention, render, rasterize_tiled, probe_grid, crop, epilogue, networks):
         for name in COUNTED & set(vars(module)):
             assert cuda_build.COUNTERS[name] is getattr(module, name)
             assert isinstance(cuda_build.COUNTERS[name].launches, int)
@@ -375,3 +375,21 @@ def test_packed_step_and_core_programs(nets, scenes, fake_graphs):
         for k in ("trans", "rot"):
             assert torch.equal(got[k], want[k][:n])
     assert sorted(k[1][0] for k in core._programs) == [2, 4]
+
+
+def test_cpu_programs_launch_no_epilogue_kernel(nets, scenes, fake_graphs):
+    """On the CPU the nets keep each conv's bias and PyTorch's ReLU and
+    residual add, so a captured Register or Track program launches the
+    convolution epilogue's kernel 0 times a call (18 and 9 on the card)."""
+    from foundationpose_cpp_tpu_torch.ops import epilogue
+
+    model = _port(nets)
+    pose, rgb, depth, mask = scenes[SIZES[0]]
+    before = epilogue.conv_epilogue.launches
+    for _ in range(2):  # the capture, then a replay
+        model.register(rgb, depth, mask, "cube")
+        model.track(rgb, depth, pose, "cube")
+    for cache in (model._register_cache, model._track_cache):
+        (program,) = cache.values()
+        assert program.captured and "conv_epilogue" not in program.launches_per_call
+    assert epilogue.conv_epilogue.launches == before
