@@ -36,7 +36,11 @@ it and read just after:
 - LM-O's eight distinct stand-in meshes (``benchmark/assets/lmo8_*``) in
   one ``track_batch``: K2 over their mesh table against its plain version
   at N=8 and 160x160, with its times and bound, then the mixed program's
-  replay against its eager run and its launches (one K2, one K1 a call);
+  replay against its eager run, its launches (one K2, one K1 a call) and
+  its poses' digest;
+- a changing set of those objects: a program for each N from 1 to 8
+  warmed, then 300 calls over at least 200 ordered sets with no capture
+  and no catalog build, each call against its function run eagerly;
 - 64 chained packed steps and a Register under
   ``torch.cuda.set_sync_debug_mode("error")``;
 - every program key of the pipeline (Register at refine_itr 1 and 2,
@@ -1151,36 +1155,63 @@ def run_multi_object(torch, np, fp, tproc, syn, transforms, render, sweep, kerne
                 depth=depth, starts=starts, gts=gts, model=model)
 
 
-def run_mixed_meshes(torch, np, fp, syn, transforms, render, sweep, profiling, kernels, K):
-    """Distinct meshes in one ``track_batch`` (the lmo8 configuration): LM-O's
-    eight stand-in meshes (the committed ``benchmark/assets/lmo8_*.ply``,
-    5.7k-22.5k faces) on a 4x2 grid 0.24 x 0.30 m apart at 1.0 m, each
-    rendered by render_scene and composited by nearest depth into one
-    480x640 frame. K2 over their mesh table (one launch pair, each view on
-    its own mesh and diameter) against its plain version at N=8 and 160x160,
-    with the wrapper's, the queued and the plain ms, eight one-view
-    launches' ms and the bound; then the mixed program from poses 2 deg /
-    1 mm off: its replay against its function run eagerly (``check_program``)
-    and, with the counts set to 0 just before a call, one K2 and one K1
-    launch a call."""
+def lmo8_scene(np, syn, K, device="cuda"):
+    """LM-O's eight stand-in meshes (the committed
+    ``benchmark/assets/lmo8_*.ply``, 5.7k-22.5k faces) on a 4x2 grid 0.24 x
+    0.30 m apart at 1.0 m, each rendered by render_scene and composited by
+    nearest depth into one 480x640 frame, and hypotheses 2 deg / 1 mm off:
+    (assets, {name: MeshConstants}, true poses, rgb, depth, hypotheses)."""
     from foundationpose_cpp_tpu_torch.meshio.mesh_loader import load_mesh
-    from foundationpose_cpp_tpu_torch.ops import rasterize as ras
-    from foundationpose_cpp_tpu_torch.pipeline.renderer import (
-        MeshConstants, MeshSet, render_branch,
-    )
-    from foundationpose_cpp_tpu_torch.utils import metrics
+    from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshConstants
 
     config = json.loads((ROOT / "benchmark" / "configs" / "lmo8.json").read_text())
     assets = [load_mesh(m["name"], str(ROOT / m["file"])) for m in config["meshes"]]
-    names = tuple(a.name for a in assets)
-    h, w, n, crop = 480, 640, len(assets), 160
-    meshes = {a.name: MeshConstants.from_asset(a, "cuda") for a in assets}
-    mesh_set = MeshSet.build(names, meshes)
+    h, w, n = 480, 640, len(assets)
+    meshes = {a.name: MeshConstants.from_asset(a, device) for a in assets}
     rng = np.random.default_rng(18)
     gts = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
     for i in range(n):
         gts[i, :3, :3] = syn.euler_xyz_deg(rng.uniform(-180, 180, 3))
         gts[i, :3, 3] = [(i % 4 - 1.5) * 0.24, (i // 4 - 0.5) * 0.30, 1.0]
+    rgb, depth = np.zeros((h, w, 3), np.uint8), np.zeros((h, w), np.float32)
+    for i, name in enumerate(meshes):
+        rgb_i, depth_i, _ = syn.render_scene(meshes[name], gts[i], K, h, w)
+        nearer = (depth_i > 0) & ((depth == 0) | (depth_i < depth))
+        rgb[nearer], depth[nearer] = rgb_i[nearer], depth_i[nearer]
+    starts = gts.copy()
+    for i in range(n):
+        starts[i, :3, :3] = rotvec_matrix(np, rng.normal(size=3), 2.0) @ gts[i, :3, :3]
+        d = rng.normal(size=3)
+        starts[i, :3, 3] += 0.001 * d / np.linalg.norm(d)
+    return assets, meshes, gts, rgb, depth, starts
+
+
+def digest(np, a) -> str:
+    """sha256 (16 hex digits) of an array's bytes."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def run_mixed_meshes(torch, np, fp, syn, transforms, render, sweep, profiling, kernels, K):
+    """Distinct meshes in one ``track_batch`` (the lmo8 configuration,
+    ``lmo8_scene``). K2 over their mesh table (one launch pair, each view on
+    its own mesh and diameter) against its plain version at N=8 and 160x160,
+    with the wrapper's, the queued and the plain ms, eight one-view
+    launches' ms and the bound; then the mixed program from poses 2 deg /
+    1 mm off: its replay against its function run eagerly (``check_program``)
+    and, with the counts set to 0 just before a call, one K2 and one K1
+    launch a call; the poses' digest (``lmo8 digest``), which a change
+    that keeps the numerics shares with its parent."""
+    from foundationpose_cpp_tpu_torch.ops import rasterize as ras
+    from foundationpose_cpp_tpu_torch.pipeline.foundationpose import CATALOG
+    from foundationpose_cpp_tpu_torch.pipeline.renderer import MeshSet, render_branch
+    from foundationpose_cpp_tpu_torch.utils import metrics
+
+    assets, meshes, gts, rgb, depth, starts = lmo8_scene(np, syn, K)
+    names = tuple(meshes)
+    h, w, n, crop = 480, 640, len(assets), 160
+    mesh_set = MeshSet.build(meshes).select(names)
 
     poses = torch.from_numpy(gts).cuda()
     Kt = torch.from_numpy(K).cuda()
@@ -1227,24 +1258,15 @@ def run_mixed_meshes(torch, np, fp, syn, transforms, render, sweep, profiling, k
         f"{n}_one_view_launches_ms_queued={each_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
         f"{needed} face-pixel tests needed)")
 
-    rgb, depth = np.zeros((h, w, 3), np.uint8), np.zeros((h, w), np.float32)
-    for i, name in enumerate(names):
-        rgb_i, depth_i, _ = syn.render_scene(meshes[name], gts[i], K, h, w)
-        nearer = (depth_i > 0) & ((depth == 0) | (depth_i < depth))
-        rgb[nearer], depth[nearer] = rgb_i[nearer], depth_i[nearer]
-    starts = gts.copy()
-    for i in range(n):
-        starts[i, :3, :3] = rotvec_matrix(np, rng.normal(size=3), 2.0) @ gts[i, :3, :3]
-        d = rng.normal(size=3)
-        starts[i, :3, 3] += 0.001 * d / np.linalg.norm(d)
     model = fp.create_foundationpose_model(
         str(ROOT / "weights" / "refiner_multi_full.npz"),
         str(ROOT / "weights" / "scorer_multi_full.npz"), assets, K, h, w)
     model.track_batch(rgb, depth, starts, list(names))  # the capture
-    program = model._track_cache[("track_batch", names, (h, w), 1, n, False)]
+    program = model._track_cache[("track_batch", CATALOG, (h, w), 1, n, False)]
+    idx = model._mesh_catalog().indices(names)
     row = check_program(torch, np, profiling, f"track_batch N={n} (lmo8, distinct meshes)",
-                        program, [torch.from_numpy(a).cuda() for a in (rgb, depth, starts)], 20,
-                        busy=True)
+                        program, [torch.from_numpy(a).cuda() for a in (rgb, depth, starts, idx)],
+                        20, busy=True)
     reset_counts(kernels)
     out = model.track_batch(rgb, depth, starts, list(names))
     counts = counts_of(kernels)
@@ -1259,6 +1281,8 @@ def run_mixed_meshes(torch, np, fp, syn, transforms, render, sweep, profiling, k
         + " ".join(f"{r:.2f}" for r in rot) + " | t_err_mm "
         + " ".join(f"{t * 1e3:.2f}" for t in trans) + " | deg from each object's one-name "
         "call " + " ".join(f"{v:.3f}" for v in vs_alone))
+    log(f"lmo8 digest: {digest(np, out)} (sha256 of the {n} poses of one track_batch over "
+        f"{list(names)})")
     per_call = program.launches_per_call
     if (counts != (1, 0, 1, 0) or per_call.get("render_views") != 1
             or per_call.get("mha_packed_qkv") != 1 or model.meshset_builds != 1
@@ -1267,7 +1291,80 @@ def run_mixed_meshes(torch, np, fp, syn, transforms, render, sweep, profiling, k
                              f"{model.meshset_builds} mesh-set builds")
     return dict(render=dict(name="lmo8 table", n=n, err=err, ms=k_ms, queued_ms=q_ms,
                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, one_view_ms=each_ms),
-                program=row)
+                program=row, model=model, names=names, rgb=rgb, depth=depth, starts=starts)
+
+
+def run_churn(torch, np, profiling, kernels, mixed, calls: int = 300) -> dict:
+    """A changing set of LM-O's objects through the mixed phase's model: one
+    call at each N from 1 to 8 (the first N objects) warms a program for
+    each N; then ``calls`` calls, each a seeded random ordered set of 1 to 8
+    of the objects (at least 200 distinct), each object from its hypothesis.
+    After the warm-up: no graph capture and no catalog build; every call's
+    poses bit for bit its program's function run eagerly on the same
+    inputs; one K2 and one K1 launch a call (the counts set to 0 just
+    before it); a replay under set_sync_debug_mode("error") for three sets;
+    ms a call (host clock, each call ending with its poses read back)."""
+    from foundationpose_cpp_tpu_torch.pipeline.foundationpose import CATALOG
+
+    model, names, rgb, depth, starts = (mixed[k] for k in ("model", "names", "rgb", "depth",
+                                                           "starts"))
+    n, (h, w) = len(names), depth.shape
+    for k in range(1, n + 1):
+        model.track_batch(rgb, depth, starts[:k], list(names[:k]))
+    captures, builds = profiling.RECORDER.captures, model.meshset_builds
+    rng = np.random.default_rng(22)
+    sets = [tuple(rng.permutation(n)[:rng.integers(1, n + 1)].tolist()) for _ in range(calls)]
+    catalog = model._mesh_catalog()
+    frame = [torch.from_numpy(a).cuda() for a in (rgb, depth)]
+
+    def args(objects):
+        idx = torch.from_numpy(catalog.indices([names[j] for j in objects])).cuda()
+        return [*frame, torch.from_numpy(starts[list(objects)]).cuda(), idx]
+
+    ms, mismatched, launches = [], [], set()
+    for objects in sets:
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        got = model.track_batch(rgb, depth, starts[list(objects)], [names[j] for j in objects])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.add(counts_of(kernels))
+        program = model._track_cache[("track_batch", CATALOG, (h, w), 1, len(objects), False)]
+        with torch.inference_mode():
+            want = program.fn(*args(objects)).cpu().numpy()
+        if not np.array_equal(got, want):
+            mismatched.append(objects)
+    sync_errors = []
+    with torch.inference_mode():
+        for objects in sets[:3]:
+            program = model._track_cache[("track_batch", CATALOG, (h, w), 1, len(objects), False)]
+            a = args(objects)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                program(*a)
+            except RuntimeError as exc:
+                sync_errors.append(str(exc)[:200])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    keys = sorted(k[4] for k in model._track_cache if k[1] == CATALOG)
+    made = profiling.RECORDER.captures - captures, model.meshset_builds - builds
+    per_call = {k[4]: model._track_cache[k].launches_per_call for k in model._track_cache
+                if k[1] == CATALOG}
+    log(f"churn: {calls} calls over {len(set(sets))} distinct ordered sets of 1-{n} of {n} "
+        f"objects after one warm-up call at each N; programs over the catalog at N={keys}; "
+        f"captures and catalog builds after the warm-up {made}; replay vs eager: "
+        f"{len(mismatched)} calls differ; a call's launches (packed attention, head-split "
+        f"attention, render, rasterize) {sorted(launches)}; replay under sync debug 'error': "
+        f"{sync_errors or 'no sync'}; ms a call mean {np.mean(ms):.3f} median "
+        f"{np.median(ms):.3f} p95 {np.percentile(ms, 95):.3f} (host clock, with the eager "
+        f"comparison between calls)")
+    if (made != (0, 0) or mismatched or launches != {(1, 0, 1, 0)} or sync_errors
+            or len(set(sets)) < 200 or keys != list(range(1, n + 1))
+            or any(p.get("render_views") != 1 or p.get("mha_packed_qkv") != 1
+                   for p in per_call.values())):
+        raise AssertionError(f"churn: captures/builds {made}, {len(mismatched)} mismatched, "
+                             f"launches {launches}, sync {sync_errors}, keys {keys}, {per_call}")
+    return dict(distinct=len(set(sets)), ms_mean=float(np.mean(ms)))
 
 
 def run_sync_free(torch, np, main):
@@ -2525,8 +2622,10 @@ def main() -> int:
               sweep, counted, K, pathlib.Path(tmp))
     multi = phase("multi-object", run_multi_object, torch, np, fp, tproc, syn, transforms,
                   render, sweep, counted, K)
-    phase("mixed meshes", run_mixed_meshes, torch, np, fp, syn, transforms, render, sweep,
-          profiling, counted, K)
+    mixed = phase("mixed meshes", run_mixed_meshes, torch, np, fp, syn, transforms, render, sweep,
+                  profiling, counted, K)
+    phase("churn", run_churn, torch, np, profiling, counted, mixed)
+    del mixed
     phase("sync", run_sync_free, torch, np, launches)
     phase("graphs", run_graphs, torch, np, fp, profiling, launches, multi, K)
     with tempfile.TemporaryDirectory() as tmp:

@@ -55,14 +55,26 @@ TABLE_COLS = ("vertex_first", "vertex_count", "face_first", "face_count", "texel
               "tex_h", "tex_w", "scratch_first")
 
 
+@functools.cache
+def _scratch_first(n: int, vertex_max: int, device: torch.device) -> torch.Tensor:
+    """(n, 8) int32, zero but for the scratch column, n * vertex_max in row
+    n; built once per (n, vertex_max, device) and kept, as
+    ``transforms._constant`` keeps its constants: a captured graph reads it
+    by address."""
+    with torch.inference_mode(False):
+        first = torch.zeros((n, len(TABLE_COLS)), dtype=torch.int32)
+        first[:, -1] = torch.arange(n, dtype=torch.int32) * vertex_max  # scratch_first
+        return first.to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class ViewTable:
     """Which mesh each view of a launch renders, out of concatenated meshes:
     ``rows`` (N, 8) int32 on the views' device, one row a view with the
     columns of ``TABLE_COLS`` (the mesh's first vertex and vertex count, its
     first face and face count, its first texel and texture size, the view's
-    first slot of the kernel's vertex scratch); ``vertex_max``, the largest
-    vertex count of a view, and ``scratch_vertices``, the scratch's slots,
+    first slot of the kernel's vertex scratch); ``vertex_max``, a bound on
+    a view's vertex count, and ``scratch_vertices``, the scratch's slots,
     as numbers for the launch."""
 
     rows: torch.Tensor
@@ -70,15 +82,15 @@ class ViewTable:
     scratch_vertices: int
 
     @staticmethod
-    def build(spans: list[tuple[int, ...]], device) -> "ViewTable":
-        """From each view's (vertex_first, vertex_count, face_first,
-        face_count, texel_first, tex_h, tex_w)."""
-        rows, first = [], 0
-        for span in spans:
-            rows.append([*span, first])
-            first += span[1]
-        return ViewTable(torch.tensor(rows, dtype=torch.int32, device=device),
-                         max(span[1] for span in spans), first)
+    def gather(mesh_rows: torch.Tensor, idx: torch.Tensor, vertex_max: int) -> "ViewTable":
+        """View n renders mesh ``idx[n]`` of ``mesh_rows`` ((M, 8) int32, the
+        scratch column 0; ``idx`` (N,) int32 on the same device), whose
+        vertex counts are at most ``vertex_max``: its row, gathered on the
+        device with no host synchronization, and the scratch's slots from
+        n * vertex_max on, so the numbers of the launch depend on N alone."""
+        n = idx.shape[0]
+        rows = mesh_rows.index_select(0, idx) + _scratch_first(n, vertex_max, idx.device)
+        return ViewTable(rows, vertex_max, n * vertex_max)
 
 
 def render_views_plain(

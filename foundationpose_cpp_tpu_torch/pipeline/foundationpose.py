@@ -52,6 +52,7 @@ from foundationpose_cpp_tpu_torch.pipeline.programs import Program, stage
 from foundationpose_cpp_tpu_torch.pipeline.renderer import (
     MeshConstants,
     MeshSet,
+    MeshViews,
     render_and_transform,
 )
 from foundationpose_cpp_tpu_torch.utils import profiling
@@ -59,7 +60,7 @@ from foundationpose_cpp_tpu_torch.utils.device import resolve_device
 
 
 def refine_loop(
-    mesh: MeshConstants | MeshSet,
+    mesh: MeshConstants | MeshViews,
     refiner: networks.RefineNet,
     poses: torch.Tensor,
     rgb: torch.Tensor,
@@ -72,7 +73,7 @@ def refine_loop(
     """refine_itr x [render -> refiner -> compose delta]
     (foundationpose.cpp:200-213). image_hw: the real (h, w) of a frame
     padded to a size bucket, numbers or 0-d f32 tensors on the device
-    (None: the tensors' shape). A ``MeshSet`` refines each pose on its own
+    (None: the tensors' shape). ``MeshViews`` refine each pose on its own
     mesh."""
     for _ in range(refine_itr):
         stage("render_crop")
@@ -189,7 +190,7 @@ def register_step(
 
 
 def track_step(
-    mesh: MeshConstants | MeshSet,
+    mesh: MeshConstants | MeshViews,
     refiner: networks.RefineNet,
     rgb: torch.Tensor,
     depth: torch.Tensor,
@@ -200,7 +201,7 @@ def track_step(
     image_hw: tuple | None = None,
 ) -> torch.Tensor:
     """Track for a (N, 4, 4) batch of instances of one mesh (N=1: the
-    reference Track), or of a ``MeshSet``'s meshes, one a pose. image_hw:
+    reference Track), or of ``MeshViews``' meshes, one a pose. image_hw:
     the real (h, w) of a padded frame."""
     stage("xyz")
     xyz_map = depth_ops.depth_to_xyz(depth, K, cfg.min_depth)
@@ -208,6 +209,10 @@ def track_step(
 
 
 DEPTH_BYTES = {"u16mm": 2, "f32": 4}
+
+# the target of a track_batch program over the catalog, in its cache key: a
+# tuple, so no mesh name can take its place
+CATALOG = ("catalog",)
 
 
 def _check_depth_format(depth_format: str) -> None:
@@ -274,10 +279,12 @@ class FoundationPose:
     refine_itr, [N,] bucketed), and the packed steps in ``_packed_cache``;
     on the card each is a CUDA graph captured on its first call, in one
     memory pool the model's graphs share. A ``track_batch`` over a sequence
-    of names (one a pose) is keyed by the tuple of names and renders with
-    its ``MeshSet``, built on the tuple's first call and kept in
-    ``_mesh_sets`` (``meshset_builds`` counts the builds). The graphs read
-    the nets' parameters, the meshes, the mesh sets and the model's
+    of names (one a pose) renders out of the model's catalog of every
+    registered mesh (``MeshSet``, built on the first such call and kept in
+    ``_catalog``; ``meshset_builds`` counts the builds, one a model): its
+    key holds ``CATALOG`` in place of a name and N, never the names, which
+    ride in as an (N,) int32 tensor of catalog indices. The graphs read
+    the nets' parameters, the meshes, the catalog and the model's
     constants by address: ``load_state_dict`` on the nets is safe,
     replacing a net, a mesh or ``_K`` after a capture is not. The programs
     keep static buffers, so a model serves one calling thread at a time.
@@ -322,7 +329,7 @@ class FoundationPose:
         self._register_cache: dict[tuple, Program] = {}
         self._track_cache: dict[tuple, Program] = {}
         self._packed_cache: dict[tuple, Program] = {}
-        self._mesh_sets: dict[tuple, MeshSet] = {}
+        self._catalog: MeshSet | None = None
         self.meshset_builds = 0
         self._graph_pool = (torch.cuda.graph_pool_handle() if self._device.type == "cuda"
                             else None)
@@ -459,15 +466,26 @@ class FoundationPose:
     def _track_program(self, key: tuple, mesh: MeshConstants | MeshSet, refine_itr: int,
                        bucketed: bool, single: bool) -> Program:
         """Track of one (4, 4) pose (``single``) or of an (N, 4, 4) batch, on
-        one mesh or on a ``MeshSet``'s, one a pose."""
+        one mesh, or on the catalog's meshes, one a pose, named by the
+        program's fourth argument, an (N,) int32 tensor of catalog indices
+        (the views' table rows and diameters are gathered in the graph)."""
         refiner, K, cfg = self._refiner, self._K, self._cfg
 
-        def program(rgb, depth, poses, hw=None):
+        def run(views, rgb, depth, poses, hw):
             out = track_step(
-                mesh, refiner, rgb, depth, poses[None] if single else poses, K, refine_itr, cfg,
+                views, refiner, rgb, depth, poses[None] if single else poses, K, refine_itr, cfg,
                 None if hw is None else (hw[0], hw[1]),
             )
             return out[0] if single else out
+
+        if isinstance(mesh, MeshSet):
+            def program(rgb, depth, poses, idx, hw=None):
+                return run(mesh.views(idx), rgb, depth, poses, hw)
+
+            return self._program(program, key, (0, 1, 4) if bucketed else (), staged=True)
+
+        def program(rgb, depth, poses, hw=None):
+            return run(mesh, rgb, depth, poses, hw)
 
         return self._program(program, key, (0, 1, 3) if bucketed else (), staged=True)
 
@@ -494,14 +512,13 @@ class FoundationPose:
         profiling.step("program")
         return self._register_cache[key](*args)
 
-    def _mesh_set(self, names: tuple) -> MeshSet:
-        """The ``MeshSet`` of a tuple of names, built on its first call."""
-        mesh_set = self._mesh_sets.get(names)
-        if mesh_set is None:
-            mesh_set = self._mesh_sets[names] = MeshSet.build(names, self._meshes)
+    def _mesh_catalog(self) -> MeshSet:
+        """The catalog of every registered mesh, built on its first call."""
+        if self._catalog is None:
+            self._catalog = MeshSet.build(self._meshes)
             self.meshset_builds += 1
             profiling.RECORDER.meshset_builds += 1
-        return mesh_set
+        return self._catalog
 
     def _check_names(self, names: tuple, n: int) -> None:
         """A name a pose, each registered: ValueError otherwise."""
@@ -518,7 +535,8 @@ class FoundationPose:
     def _run_track(self, kind: str, rgb, depth, poses: np.ndarray, target, refine_itr):
         """Shared Track plumbing: ``kind`` "track" for one (4, 4) pose,
         "track_batch" for (N, 4, 4) (its key holds N); ``target`` a name, or
-        for "track_batch" a tuple of names, one a pose (its key holds it)."""
+        for "track_batch" a tuple of names, one a pose (its key holds
+        ``CATALOG``; their catalog indices are uploaded, step ``names``)."""
         with profiling.call(kind):
             profiling.step("check")
             single_mesh = isinstance(target, str)
@@ -528,12 +546,14 @@ class FoundationPose:
             h, w = rgb.shape[:2]
             bucket = self._bucket_for(h, w)
             n = () if kind == "track" else (int(poses.shape[0]),)
-            key = (kind, target, bucket or (h, w), int(refine_itr), *n, bucket is not None)
             if single_mesh:
-                mesh = self._meshes[target]
+                mesh, names = self._meshes[target], ()
             else:
-                profiling.step("meshset")
-                mesh = self._mesh_set(target)
+                profiling.step("names")
+                mesh = self._mesh_catalog()
+                names = (self._upload(mesh.indices(target)),)
+                target = CATALOG
+            key = (kind, target, bucket or (h, w), int(refine_itr), *n, bucket is not None)
             if key not in self._track_cache:
                 self._track_cache[key] = self._track_program(
                     key, mesh, int(refine_itr), bucket is not None, kind == "track")
@@ -541,7 +561,7 @@ class FoundationPose:
             frame = self._frame_args(rgb, depth)
             pose = self._upload(poses)
             profiling.step("program")
-            out = self._track_cache[key](*frame[:2], pose, *frame[2:])
+            out = self._track_cache[key](*frame[:2], pose, *names, *frame[2:])
             return _read_back(out)[0]
 
     def register(
@@ -591,9 +611,11 @@ class FoundationPose:
         """Track a (N, 4, 4) batch in one frame (an extension over the
         reference, which tracks one per call): N instances of the mesh
         ``target_name``, one program for each N; or, with a sequence of N
-        names, pose i on mesh ``target_name[i]``, one program for each
-        tuple of names, which renders all N views in one launch of the
-        render kernel a refinement. Distinct objects are independent in
+        registered names in any order, repeats allowed, pose i on mesh
+        ``target_name[i]``, one program for each N whatever the names, which
+        renders all N views in one launch of the render kernel a refinement
+        out of the model's catalog of meshes (a new set of names captures
+        nothing and builds nothing). Distinct objects are independent in
         Track, so each pose is refined on its own mesh and diameter; it
         equals a call on its mesh alone up to the rounding of the crop
         window's bounds, which may fall a pixel apart between batches of

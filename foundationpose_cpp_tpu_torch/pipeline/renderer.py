@@ -65,15 +65,15 @@ class MeshConstants:
 
 @dataclasses.dataclass(frozen=True)
 class MeshSet:
-    """N views' meshes, one a view, as one launch of the render kernel takes
-    them: the distinct ``MeshConstants`` concatenated (faces index their own
-    mesh's vertices, texels are flattened to (texels, 3)), ``table`` the
-    row per view that selects its mesh (``ops.render.ViewTable``; its face
-    spans are the meshes' face counts), ``diameter`` the (N,) f32
-    diameters on the device, which ``render_and_transform`` and
-    ``transforms.apply_refine_delta`` take where a mesh has a number. Built
-    once per tuple of names (``FoundationPose``) and read by address by the
-    graphs that captured it.
+    """A model's catalog: every registered ``MeshConstants`` concatenated
+    once, in registration order, as one launch of the render kernel takes
+    them (faces index their own mesh's vertices, texels are flattened to
+    (texels, 3)); ``rows`` the (M, 8) int32 ``ops.render.ViewTable`` row of
+    each mesh (its scratch column 0), ``diameters`` the (M,) f32 diameters,
+    on the device, and ``vertex_max`` the largest vertex count. Built once
+    a model (``FoundationPose``); ``views`` picks each view's mesh out of it
+    on the device, so one program serves any names. The graphs read it by
+    address.
     """
 
     names: tuple
@@ -82,41 +82,87 @@ class MeshSet:
     texcoords: torch.Tensor  # (sum V, 2)
     faces: torch.Tensor  # (sum F, 3) int32, local to each mesh
     texture: torch.Tensor  # (sum Th * Tw, 3) f32
-    diameter: torch.Tensor  # (N,) f32
-    table: render.ViewTable
+    rows: torch.Tensor  # (M, 8) int32
+    diameters: torch.Tensor  # (M,) f32
+    vertex_max: int
 
     @staticmethod
-    def build(names, meshes: dict[str, MeshConstants]) -> "MeshSet":
-        """The set of ``names`` (one a view) out of ``meshes``; the
-        distinct meshes are concatenated in the order they first appear."""
-        distinct = list(dict.fromkeys(names))
-        spans, v, f, t = {}, 0, 0, 0
-        for name in distinct:
-            m = meshes[name]
+    def build(meshes: dict[str, MeshConstants]) -> "MeshSet":
+        """The catalog of ``meshes``, in their order."""
+        rows, v, f, t = [], 0, 0, 0
+        for m in meshes.values():
             th, tw = m.texture.shape[:2]
-            spans[name] = (v, m.vertices.shape[0], f, m.faces.shape[0], t, th, tw)
+            rows.append([v, m.vertices.shape[0], f, m.faces.shape[0], t, th, tw, 0])
             v, f, t = v + m.vertices.shape[0], f + m.faces.shape[0], t + th * tw
-        device = meshes[distinct[0]].vertices.device
+        device = next(iter(meshes.values())).vertices.device
 
         def cat(field, shape=None):
-            parts = [getattr(meshes[n], field) for n in distinct]
+            parts = [getattr(m, field) for m in meshes.values()]
             return torch.cat([p.reshape(shape) if shape else p for p in parts]).contiguous()
 
         return MeshSet(
-            names=tuple(names),
+            names=tuple(meshes),
             vertices=cat("vertices"),
             normals=cat("normals"),
             texcoords=cat("texcoords"),
             faces=cat("faces"),
             texture=cat("texture", (-1, 3)),
-            diameter=torch.tensor([meshes[n].diameter for n in names], dtype=torch.float32,
-                                  device=device),
-            table=render.ViewTable.build([spans[n] for n in names], device),
+            rows=torch.tensor(rows, dtype=torch.int32, device=device),
+            diameters=torch.tensor([m.diameter for m in meshes.values()], dtype=torch.float32,
+                                   device=device),
+            vertex_max=max(m.vertices.shape[0] for m in meshes.values()),
         )
+
+    def indices(self, names) -> np.ndarray:
+        """(N,) int32 catalog index of each of ``names`` (host memory)."""
+        return np.array([self.names.index(name) for name in names], np.int32)
+
+    def views(self, idx: torch.Tensor) -> "MeshViews":
+        """View n on mesh ``idx[n]`` ((N,) int32 on the device): its table
+        row and diameter gathered on the device, no host synchronization."""
+        return MeshViews(self, render.ViewTable.gather(self.rows, idx, self.vertex_max),
+                         self.diameters.index_select(0, idx))
+
+    def select(self, names) -> "MeshViews":
+        """``views`` of the indices of ``names``, uploaded (outside a program)."""
+        return self.views(torch.as_tensor(self.indices(names), device=self.rows.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshViews:
+    """N views' meshes out of a ``MeshSet``, one a view: ``table`` the
+    view's rows (``ops.render.ViewTable``) and ``diameter`` the (N,) f32
+    diameters, which ``render_and_transform`` and
+    ``transforms.apply_refine_delta`` take where a mesh has a number; the
+    mesh tensors are the catalog's."""
+
+    catalog: MeshSet
+    table: render.ViewTable
+    diameter: torch.Tensor
+
+    @property
+    def vertices(self) -> torch.Tensor:
+        return self.catalog.vertices
+
+    @property
+    def normals(self) -> torch.Tensor:
+        return self.catalog.normals
+
+    @property
+    def texcoords(self) -> torch.Tensor:
+        return self.catalog.texcoords
+
+    @property
+    def faces(self) -> torch.Tensor:
+        return self.catalog.faces
+
+    @property
+    def texture(self) -> torch.Tensor:
+        return self.catalog.texture
 
 
 def render_branch(
-    mesh: MeshConstants | MeshSet,
+    mesh: MeshConstants | MeshViews,
     poses: torch.Tensor,
     clip_mat: torch.Tensor,
     ch: int,
@@ -125,17 +171,17 @@ def render_branch(
 ) -> torch.Tensor:
     """Render branch only: N poses through clip matrices -> (N, ch, cw, 6):
     raster, barycentric attributes, texture, Lambert shade, v-flip, xyz
-    threshold/diameter-downscale. A ``MeshSet`` renders each pose on its own
+    threshold/diameter-downscale. ``MeshViews`` render each pose on its own
     mesh, in one launch."""
     return render.render_views(
         mesh.vertices, mesh.normals, mesh.texcoords, mesh.faces, mesh.texture, poses, clip_mat,
         ch, cw, mesh.diameter, cfg.min_depth, cfg.max_depth, cfg.w_ambient, cfg.w_diffuse,
-        table=mesh.table if isinstance(mesh, MeshSet) else None,
+        table=mesh.table if isinstance(mesh, MeshViews) else None,
     )
 
 
 def render_and_transform(
-    mesh: MeshConstants | MeshSet,
+    mesh: MeshConstants | MeshViews,
     poses: torch.Tensor,
     rgb: torch.Tensor,
     xyz_map: torch.Tensor,
@@ -152,7 +198,7 @@ def render_and_transform(
     bucket (None: their shape), as numbers or as 0-d f32 tensors on the
     device. The zero padding reads as the warps' zero border, so only the
     clip matrix needs the real extent.
-    A ``MeshSet`` gives each pose its own mesh and diameter.
+    ``MeshViews`` give each pose its own mesh and diameter.
     Returns (render_input, transf_input), each (N, crop_h, crop_w, 6) f32.
     """
     ch, cw = cfg.crop_window_h, cfg.crop_window_w

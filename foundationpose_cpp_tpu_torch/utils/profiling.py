@@ -8,8 +8,9 @@ work is done. So the port records, in ``RECORDER``:
 
 - host spans of each public call: the root (``register``,
   ``register_with_scores``, ``track``, ``track_batch``) and its steps
-  ``check``, ``mask``, ``upload``, ``program`` (with the spans ``load``,
-  ``replay`` and ``clone``) and ``readback``, each step opened by ``step``
+  ``check``, ``mask``, ``names`` (a ``track_batch`` over names: their
+  catalog indices mapped and uploaded), ``upload``, ``program`` (with the
+  spans ``load``, ``replay`` and ``clone``) and ``readback``, each step opened by ``step``
   and closed by the next; while a ``torch.profiler`` session runs each
   span is also a ``record_function("fp.<name>")`` range, so the spans sit
   in its Chrome trace on the device trace's clock;
@@ -21,9 +22,10 @@ work is done. So the port records, in ``RECORDER``:
   buffers), ``clone`` (of a graph's outputs) and ``readback`` (device to
   host); the launches of each counted kernel wrapper a call's graph
   replays made (``ops.cuda_build.COUNTERS``: ``render_views`` is K2's); and
-  the process's graph captures and replays and the models' mesh-set builds
-  (``FoundationPose.track_batch`` over distinct meshes; one after the
-  warm-up is a new tuple of names met while serving).
+  the process's graph captures and replays and the models' mesh-catalog
+  builds (``FoundationPose.track_batch`` over names builds its model's
+  catalog of every registered mesh once; a capture after the warm-up is a
+  batch size met first while serving).
 
 The recorder is off unless ``tracing()`` is active or a profiler session
 runs; off, a public call costs a few attribute checks (about a
@@ -161,7 +163,7 @@ class Recorder:
 
     ``captures`` and ``replays`` count every program's captures and
     replays in the process, on or off, and ``meshset_builds`` every model's
-    mesh-set builds; the byte counters count only the copies of recorded
+    mesh-catalog builds; the byte counters count only the copies of recorded
     calls, in each call and in ``bytes`` (the stretch's totals), and the
     launch counters only their launches.
     """

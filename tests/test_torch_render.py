@@ -64,8 +64,8 @@ def _setup(name):
 @pytest.mark.parametrize("name", [*sorted(MESHES), "mesh_set"])
 def test_render_branch_matches_jax(name):
     """Each mesh on its real faces against the JAX package on its padded
-    faces; ``mesh_set``: pose i on mesh i of the three, one ``MeshSet``
-    whose face spans are the meshes' real face counts."""
+    faces; ``mesh_set``: pose i on mesh i of the three, out of one
+    ``MeshSet`` whose face spans are the meshes' real face counts."""
     names = sorted(MESHES) if name == "mesh_set" else [name] * 3
     setups = {n: _setup(n) for n in names}
     for n, (jmesh, tmesh, _, _) in setups.items():
@@ -79,7 +79,7 @@ def test_render_branch_matches_jax(name):
     poses = np.stack([setups[n][2][i] for i, n in enumerate(names)])
     clipm = np.stack([setups[n][3][i] for i, n in enumerate(names)])
     meshes = {n: setup[1] for n, setup in setups.items()}
-    mesh = meshes[name] if name in MESHES else tren.MeshSet.build(names, meshes)
+    mesh = meshes[name] if name in MESHES else tren.MeshSet.build(meshes).select(names)
     if name == "mesh_set":
         counts = [meshes[n].faces.shape[0] for n in names]
         assert mesh.table.rows[:, trender.TABLE_COLS.index("face_count")].tolist() == counts

@@ -6,8 +6,8 @@ crop 32. The mixed call is held against per-mesh ``track_batch`` calls and
 against the plain reference's per-object refinement
 (``benchmark/reference/scene_multi.py``); its pieces (the plain render over
 a mesh table, the geometry on per-pose diameters) against their one-mesh
-versions; its program, mesh-set build and span with the stand-in of
-tests/graph_standin.py. No JAX is imported.
+versions; its program, catalog build and ``names`` span with the stand-in
+of tests/graph_standin.py. No JAX is imported.
 """
 
 import dataclasses
@@ -23,7 +23,7 @@ from foundationpose_cpp_tpu_torch.meshio.mesh_loader import load_mesh
 from foundationpose_cpp_tpu_torch.models import convert_jax, networks
 from foundationpose_cpp_tpu_torch.ops import depth as depth_ops
 from foundationpose_cpp_tpu_torch.ops import pointcloud, render
-from foundationpose_cpp_tpu_torch.pipeline.foundationpose import FoundationPose
+from foundationpose_cpp_tpu_torch.pipeline.foundationpose import CATALOG, FoundationPose
 from foundationpose_cpp_tpu_torch.pipeline.renderer import (
     MeshSet,
     render_and_transform,
@@ -123,7 +123,7 @@ def test_mixed_track_batch_equals_per_mesh_calls(model, frame):
     poses = torch.as_tensor(hyp)
     rgb_t, depth_t = torch.as_tensor(rgb), torch.as_tensor(depth)
     xyz = depth_ops.depth_to_xyz(depth_t, model._K, CFG.min_depth)
-    mixed = render_and_transform(model._mesh_set(ORDER), poses, rgb_t, xyz, model._K,
+    mixed = render_and_transform(model._mesh_catalog().select(ORDER), poses, rgb_t, xyz, model._K,
                                  CFG.refine_crop_ratio, CFG)
     for name in NAMES:
         idx = [i for i, n in enumerate(ORDER) if n == name]
@@ -157,7 +157,7 @@ def test_a_one_name_list_equals_the_one_name_call(model, frame):
 
 def test_plain_render_over_a_mesh_table_equals_per_mesh_renders(model):
     poses = torch.as_tensor(_poses())
-    mesh_set = MeshSet.build(ORDER, model._meshes)
+    mesh_set = MeshSet.build(model._meshes).select(ORDER)
     assert mesh_set.table.rows.shape == (len(ORDER), len(render.TABLE_COLS))
     assert mesh_set.diameter.dtype == torch.float32
     Kt = torch.as_tensor(K)
@@ -220,6 +220,10 @@ def test_names_that_do_not_fit_raise_before_any_upload(model, frame, monkeypatch
 
 
 def test_one_program_and_one_mesh_set_per_names_tuple(files, frame):
+    """Every tuple of names of one length shares one program (keyed by N,
+    not by the names) and the one catalog, built on the first call: a new
+    tuple captures nothing and builds nothing, and each call returns its
+    own tuple's poses."""
     rgb, depth, hyp = frame
     model = _model(files)
     recorded = profiling.RECORDER.meshset_builds
@@ -229,19 +233,23 @@ def test_one_program_and_one_mesh_set_per_names_tuple(files, frame):
             assert np.array_equal(model.track_batch(rgb, depth, hyp, list(ORDER)), first)
         model.track_batch(rgb, depth, hyp, "cube")
         other = ("cube", "quad", "bumpy", "quad", "cube")
-        model.track_batch(rgb, depth, hyp, other)
-        model.track_batch(rgb, depth, hyp, other)
-    assert model.meshset_builds == 2 and profiling.RECORDER.meshset_builds == recorded + 2
+        got = model.track_batch(rgb, depth, hyp, other)
+        assert np.array_equal(model.track_batch(rgb, depth, hyp, other), got)
+        assert np.array_equal(model.track_batch(rgb, depth, hyp, ORDER), first)
+    with graphs(None):
+        assert np.array_equal(_model(files).track_batch(rgb, depth, hyp, other), got)
+    assert model.meshset_builds == 1 and profiling.RECORDER.meshset_builds == recorded + 2
     keys = [k for k in model._track_cache if not isinstance(k[1], str)]
-    assert keys == [("track_batch", ORDER, (H, W), 1, 5, False),
-                    ("track_batch", other, (H, W), 1, 5, False)]
+    assert keys == [("track_batch", CATALOG, (H, W), 1, 5, False)]
     program = model._track_cache[keys[0]]
-    assert (program.captures, program.replays) == (1, 3)
-    assert model._mesh_sets[ORDER].names == ORDER
-    assert standin.captures == 3
+    assert (program.captures, program.replays) == (1, 6)
+    assert model._catalog.names == NAMES
+    assert standin.captures == 2
 
 
 def test_a_recorded_mixed_call_has_the_meshset_span_and_its_launches(files, frame, monkeypatch):
+    """A recorded call over names opens the ``names`` step (their catalog
+    indices mapped and uploaded) after ``check``."""
     rgb, depth, hyp = frame
     model = _model(files)
     real = render.render_views
@@ -255,12 +263,12 @@ def test_a_recorded_mixed_call_has_the_meshset_span_and_its_launches(files, fram
         model.track_batch(rgb, depth, hyp, ORDER)  # the capture
         with profiling.tracing() as rec:
             model.track_batch(rgb, depth, hyp, ORDER)
-            model.track_batch(rgb, depth, hyp, ORDER)
+            model.track_batch(rgb, depth, hyp, ORDER[::-1])
             summary = rec.summary()
     names = [s[1] for s in rec.calls[0].spans]
-    assert names[:3] == ["track_batch", "check", "meshset"] and "program" in names
-    assert summary["spans"]["meshset"]["count"] == 2
+    assert names[:3] == ["track_batch", "check", "names"] and "program" in names
+    assert summary["spans"]["names"]["count"] == 2 and "meshset" not in summary["spans"]
     assert summary["launches"] == {"render_views": 1.0}
     assert summary["meshset_builds"] == profiling.RECORDER.meshset_builds
-    program = next(p for k, p in model._track_cache.items() if k[1] == ORDER)
+    program = model._track_cache[("track_batch", CATALOG, (H, W), 1, len(ORDER), False)]
     assert program.launches_per_call == {"render_views": 1}
